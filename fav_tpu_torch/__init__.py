@@ -1,0 +1,18 @@
+"""fav_tpu_torch — the PyTorch/CUDA port of fav_tpu for one NVIDIA H100.
+
+The JAX package ``fav_tpu`` stays the reference; this package imports
+nothing of it, nor JAX. Every Pallas kernel on a ported path becomes a CUDA
+C++ kernel for ``sm_90a`` (``ops/csrc``), built with plain ``nvcc`` at first
+use and bound with ``ctypes``; its plain PyTorch version sits beside it and
+serves CPU tensors.
+
+Layout:
+    fav_tpu_torch.config     ModelParams (own copy of fav_tpu.config's)
+    fav_tpu_torch.device     resolve_device: cuda by default, cpu on request
+    fav_tpu_torch.ops        Philox draws, corruption transforms, CUDA kernels
+    fav_tpu_torch.models     FailureAwareCNN, MSP / anomaly scalars
+    fav_tpu_torch.utils      flax -> torch weights bridge
+    fav_tpu_torch.pipeline   the detection megastep (corrupt -> CNN -> scalars)
+"""
+
+__version__ = "0.1.0"
