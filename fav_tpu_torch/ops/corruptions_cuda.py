@@ -1,9 +1,22 @@
-"""Wrappers of CUDA kernels K1-K4 and the router of the slice's five families.
+"""Wrappers of CUDA kernels K1-K6 and the Philox uniform helper, and the
+router of all fifteen corruption families.
 
 Counterpart of ``fav_tpu/ops/corruptions_pallas.py`` (``_grid_call`` :157,
-the wrappers :191-253, ``fast_corruption_fn`` :749-793). Every family is
-``fn(seed, x, severity)`` over float32 batch-first images (NHWC at the
-main path). A wrapper checks its input and then:
+the wrappers :191-253, ``glass_blur_pallas`` :421,
+``elastic_transform_pallas`` :518, the matmul forms :616-746 and
+``fast_corruption_fn`` :749-793). Every family is ``fn(seed, x, severity)``
+over float32 batch-first images (NHWC at the main path), routed as
+``fast_corruption_fn`` routes it on the TPU:
+
+* gaussian, shot and impulse noise, brightness and contrast: K1-K4;
+* glass blur: band-product blur, K5's resample cascade, blur and clip;
+* elastic transform: fields from Philox uniforms by band products, then K6;
+* defocus, motion and zoom blur, snow, frost, fog, pixelate and JPEG: the
+  band-matrix products of ``ops/corruptions.py`` (cuBLAS on the card), the
+  random fields of motion, snow, frost and fog drawn on the card by the
+  Philox helper.
+
+A kernel wrapper checks its input and then:
 
 * on a CPU tensor runs the plain version of ``ops/corruptions.py``;
 * on a CUDA tensor launches its kernel on PyTorch's current stream, raises
@@ -11,13 +24,15 @@ main path). A wrapper checks its input and then:
   count. There is no fallback: a kernel that does not build or launch
   raises.
 
-The sources are ``csrc/corruptions.cu``; ``ops/_build.py`` compiles them at
-the first launch.
+The sources are ``csrc/corruptions.cu`` (K1-K4 and the helper),
+``csrc/glass.cu`` (K5) and ``csrc/elastic.cu`` (K6); ``ops/_build.py``
+compiles them at the first launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,13 +43,19 @@ from fav_tpu_torch.ops.random import seed_key
 __all__ = [
     "KERNELS",
     "PHOTOMETRIC_MAX_D",
+    "SHARED_MEMORY_LIMIT",
     "launch_counts",
     "reset_launch_counts",
+    "uniform",
     "gaussian_noise",
     "shot_noise",
     "impulse_noise",
     "brightness",
     "contrast",
+    "glass_resample",
+    "glass_blur",
+    "elastic_warp",
+    "elastic_transform",
     "corruption_fn",
 ]
 
@@ -47,6 +68,9 @@ _I32 = ctypes.c_int
 # K4 holds one image in shared memory: d floats plus 32 bytes of its own,
 # inside the 48 KB a block gets without opting in to more.
 PHOTOMETRIC_MAX_D = 11 * 1024
+# K5 and K6 hold one image per block in dynamic shared memory, within the
+# same 48 KB.
+SHARED_MEMORY_LIMIT = 48 * 1024
 
 
 class CudaKernel:
@@ -96,6 +120,14 @@ KERNELS = {
     # K4, replaces _photometric_kernel (brightness and contrast)
     "photometric": CudaKernel("corruptions", "fav_photometric",
                               [_P, _P, _I32, _I32, _F32, _F32, _P]),
+    # K5, replaces _glass_kernel
+    "glass_resample": CudaKernel("glass", "fav_glass_resample",
+                                 [_P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _U32, _U32, _P]),
+    # K6, replaces _elastic_kernel
+    "elastic_warp": CudaKernel("elastic", "fav_elastic_warp",
+                               [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]),
+    # helper, no TPU counterpart: the Philox uniforms of ops/random.py on the card
+    "philox_uniform": CudaKernel("corruptions", "fav_philox_uniform", [_P, _I64, _U32, _U32, _U32, _P]),
 }
 
 
@@ -196,19 +228,113 @@ def contrast(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
     return _photometric(x, 0.0, plain.sev_param(plain.CONTRAST_C, severity))
 
 
+def uniform(seed: int, shape, draw: int, device) -> torch.Tensor:
+    """Draw ``draw`` of ``seed`` as float32 uniforms in (0, 1] of ``shape``:
+    on the card written by the Philox helper kernel, bit-equal to
+    ``ops/random.py``'s ``uniform01``; on the CPU ``uniform01`` itself."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return plain.uniform_field(seed, shape, draw, device)
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    KERNELS["philox_uniform"].launch(device, out.data_ptr(), out.numel(), int(draw), *seed_key(seed))
+    return out
+
+
+def _on_cpu_nhwc(x: torch.Tensor, name: str) -> bool:
+    """``_on_cpu`` for the spatial families, which take (B, H, W, C) images."""
+    cpu = _on_cpu(x, name)
+    if x.ndim != 4:
+        raise ValueError(f"{name}: expected NHWC images (B, H, W, C), got shape {tuple(x.shape)}")
+    return cpu
+
+
+def glass_resample(seed: int, x: torch.Tensor, m: int, iters: int) -> torch.Tensor:
+    """K5: ``iters`` rounds of the row then column random resample of NHWC
+    ``x``, offsets in [-m, m] from Philox draws 0 .. 2 iters - 1."""
+    if _on_cpu_nhwc(x, "glass_resample"):
+        return plain.glass_resample_plain(seed, x, m, iters)
+    b, h, w, c = x.shape
+    passes = 2 * int(iters)
+    smem = 2 * h * w * c * 4 + passes * h * w
+    if smem > SHARED_MEMORY_LIMIT:
+        raise ValueError(f"glass_resample: a {h}x{w}x{c} image needs {smem} bytes of shared memory "
+                         f"(limit {SHARED_MEMORY_LIMIT})")
+    if not 0 <= int(m) <= 127:  # the kernel keeps each code, 0 .. 2m, in a byte
+        raise ValueError(f"glass_resample: offset bound m={m} outside 0..127")
+    out = torch.empty_like(x)
+    KERNELS["glass_resample"].launch(x.device, x.data_ptr(), out.data_ptr(), b, h, w, c, int(m), passes,
+                                     *seed_key(seed))
+    return out
+
+
+def glass_blur(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+    """Band-product blur, K5, blur and clip (``glass_blur_pallas``)."""
+    _on_cpu_nhwc(x, "glass_blur")
+    return plain.glass_blur_with(x, severity, lambda y, m, iters: glass_resample(seed, y, m, iters))
+
+
+def elastic_warp(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, severity: int = 3) -> torch.Tensor:
+    """K6: the tent-sum bilinear warp of NHWC ``x`` to the clamped sample
+    coordinates ``(ys, xs)``, each (B, H, W)."""
+    cpu = _on_cpu_nhwc(x, "elastic_warp")
+    b, h, w, c = x.shape
+    for name, f in (("ys", ys), ("xs", xs)):
+        if not isinstance(f, torch.Tensor) or f.dtype != torch.float32 or f.shape != (b, h, w):
+            raise ValueError(f"elastic_warp: {name} must be float32 of shape {(b, h, w)}")
+        if f.device != x.device or not f.is_contiguous():
+            raise ValueError(f"elastic_warp: {name} must be contiguous on {x.device}")
+    m = plain.elastic_margin(severity)
+    if cpu:
+        return plain.elastic_from_fields(x, ys, xs, severity)
+    if h * w * c * 4 > SHARED_MEMORY_LIMIT:
+        raise ValueError(f"elastic_warp: a {h}x{w}x{c} image needs {h * w * c * 4} bytes of shared memory "
+                         f"(limit {SHARED_MEMORY_LIMIT})")
+    out = torch.empty_like(x)
+    KERNELS["elastic_warp"].launch(x.device, x.data_ptr(), ys.data_ptr(), xs.data_ptr(), out.data_ptr(),
+                                   b, h, w, c, m)
+    return out
+
+
+def elastic_transform(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+    """Fields from Philox draws 0 and 1 (``ops/corruptions.py``), then K6."""
+    _on_cpu_nhwc(x, "elastic_transform")
+    ys, xs = plain.elastic_fields(seed, x, severity, uniform=uniform)
+    return elastic_warp(x, ys, xs, severity)
+
+
+def _band_family(name: str, fn):
+    """A band-matrix family, its input checked; draw families take their
+    fields from ``uniform``."""
+    def routed(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+        _on_cpu_nhwc(x, name)
+        return fn(seed, x, severity)
+
+    routed.__name__ = name
+    return routed
+
+
 _ROUTES = {
     "gaussian_noise": gaussian_noise,
     "shot_noise": shot_noise,
     "impulse_noise": impulse_noise,
+    "defocus_blur": _band_family("defocus_blur", plain.corruption_fn("defocus_blur")),
+    "glass_blur": glass_blur,
+    "motion_blur": _band_family("motion_blur", functools.partial(plain.motion_blur_plain, uniform=uniform)),
+    "zoom_blur": _band_family("zoom_blur", plain.corruption_fn("zoom_blur")),
+    "snow": _band_family("snow", functools.partial(plain.snow_plain, uniform=uniform)),
+    "frost": _band_family("frost", functools.partial(plain.frost_plain, uniform=uniform)),
+    "fog": _band_family("fog", functools.partial(plain.fog_plain, uniform=uniform)),
     "brightness": brightness,
     "contrast": contrast,
+    "elastic_transform": elastic_transform,
+    "pixelate": _band_family("pixelate", plain.corruption_fn("pixelate")),
+    "jpeg_compression": _band_family("jpeg_compression", plain.corruption_fn("jpeg_compression")),
 }
 
 
 def corruption_fn(name: str):
-    """The routed family ``fn(seed, x, severity)``: a kernel wrapper for the
-    five families of the slice; ``NotImplementedError`` naming the ROADMAP
-    item for the ten others."""
-    if name in _ROUTES:
-        return _ROUTES[name]
-    raise plain.not_ported(name)
+    """The routed family ``fn(seed, x, severity)``, as ``fast_corruption_fn``
+    routes it; an unknown name raises ``NotImplementedError``."""
+    if name not in _ROUTES:
+        raise NotImplementedError(f"unknown corruption {name!r}")
+    return _ROUTES[name]

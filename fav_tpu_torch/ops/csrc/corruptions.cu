@@ -1,4 +1,4 @@
-// Corruption kernels K1-K4 for Hopper (sm_90a), with a plain C interface.
+// Corruption kernels K1-K4 and the Philox uniform helper for Hopper (sm_90a), with a plain C interface.
 //
 // Built by fav_tpu_torch/ops/_build.py with plain nvcc into a shared library
 // and bound with ctypes by fav_tpu_torch/ops/corruptions_cuda.py. Every
@@ -14,54 +14,23 @@
 //
 // Random numbers: Philox4x32-10 keyed by the 64-bit seed, counter
 // (group lo, group hi, draw, 0) with group = element / 4; word element % 4
-// feeds the element. fav_tpu_torch/ops/random.py computes the same words.
+// feeds the element (philox.cuh). fav_tpu_torch/ops/random.py computes the
+// same words.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
+using fav::bits_to_uniform;
+using fav::draw_words;
+using fav::word;
+
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += kPhiloxW0;
-      k1 += kPhiloxW1;
-    }
-    const uint32_t lo0 = kPhiloxM0 * c.x;
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x);
-    const uint32_t lo1 = kPhiloxM1 * c.z;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ uint4 draw_words(long long group, uint32_t draw, uint32_t k0,
-                                            uint32_t k1) {
-  const unsigned long long g = static_cast<unsigned long long>(group);
-  return philox4x32_10(make_uint4(static_cast<uint32_t>(g), static_cast<uint32_t>(g >> 32), draw, 0u),
-                       k0, k1);
-}
-
-// Top 24 bits, offset by half a step: (0, 1] with 0 excluded, as
-// corruptions_pallas.py:73-82 maps the TPU's bits.
-__device__ __forceinline__ float bits_to_uniform(uint32_t bits) {
-  return __fadd_rn(__fmul_rn(static_cast<float>(bits >> 8), 5.9604644775390625e-08f),
-                   2.98023223876953125e-08f);
-}
-
 __device__ __forceinline__ float clip01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
-
-__device__ __forceinline__ uint32_t word(const uint4& w, int j) {
-  return j == 0 ? w.x : (j == 1 ? w.y : (j == 2 ? w.z : w.w));
-}
 
 // Loads and stores one group of four elements: one float4 where the group is
 // whole and the pointers are 16-byte aligned, element by element otherwise.
@@ -223,6 +192,27 @@ __global__ void photometric_kernel(const float* __restrict__ x, float* __restric
   }
 }
 
+// ── Philox uniforms (a helper, no TPU counterpart) ────────────────────────
+// Writes draw `draw` of the seed as float32 uniforms in (0, 1], in the
+// stream layout above: the words ops/random.py's uniform01 computes. The
+// torch ops of elastic, snow, fog, frost and motion blur take their fields
+// from here on the card. Bound: bytes (4 written per element, about 29
+// operations each). One Philox call per thread, one float4 store.
+__global__ void philox_uniform_kernel(float* __restrict__ out, long long n, uint32_t draw,
+                                      uint32_t k0, uint32_t k1, bool vec) {
+  const long long groups = (n + 3) / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups;
+       g += stride) {
+    const uint4 w = draw_words(g, draw, k0, k1);
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = bits_to_uniform(word(w, j));
+    const int m = static_cast<int>(n - 4 * g < 4 ? n - 4 * g : 4);
+    store_group(out, g, vec, m, v);
+  }
+}
+
 int elementwise_blocks(long long n) {
   const long long groups = (n + 3) / 4;
   long long blocks = (groups + kThreads - 1) / kThreads;
@@ -275,6 +265,14 @@ int fav_photometric(const float* x, float* out, int batch, int d, float bright, 
   const size_t smem = use_mean ? static_cast<size_t>(d) * sizeof(float) : 0;
   photometric_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, out, d, bright, contrast, use_mean);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fav_philox_uniform(float* out, long long n, uint32_t draw, uint32_t seed_lo, uint32_t seed_hi,
+                       void* stream) {
+  if (n <= 0) return 0;
+  philox_uniform_kernel<<<elementwise_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, n, draw, seed_lo, seed_hi, aligned16(out, out));
   return static_cast<int>(cudaGetLastError());
 }
 

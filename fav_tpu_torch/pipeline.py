@@ -8,7 +8,9 @@ the batch is corrupted, goes through the bf16 forward, MSP confidence and
 ``bench.py``: mean confidence, mean anomaly and failure rate
 (``confidence < 0.5``), each averaged over the cells.
 
-This slice runs the five families whose TPU kernels are K1-K4.
+The default cells are ``bench.py``'s ``BENCH_CELLS``: all fifteen families
+at severity 3, in its order, so the whole main path runs: K1-K6 and the
+band-matrix families (``ops/corruptions_cuda.py``), then the nano forward.
 """
 
 from __future__ import annotations
@@ -23,16 +25,25 @@ from fav_tpu_torch.models.cnn import create_model
 from fav_tpu_torch.models.uncertainty import anomaly_from_confidence, msp
 from fav_tpu_torch.ops import corruptions_cuda
 
-__all__ = ["SLICE_CELLS", "BATCH", "FAILURE_THRESHOLD", "cell_scalars", "make_megastep", "entry"]
+__all__ = ["BENCH_CELLS", "BATCH", "FAILURE_THRESHOLD", "cell_scalars", "make_megastep", "entry"]
 
-# The five families of bench.py's BENCH_CELLS that route to K1-K4, at the
-# severity-3 midpoint.
-SLICE_CELLS = (
+# bench.py:27-43: all fifteen families at the severity-3 midpoint, in order.
+BENCH_CELLS = (
     ("gaussian_noise", 3),
     ("shot_noise", 3),
     ("impulse_noise", 3),
+    ("defocus_blur", 3),
+    ("glass_blur", 3),
+    ("motion_blur", 3),
+    ("zoom_blur", 3),
+    ("snow", 3),
+    ("frost", 3),
+    ("fog", 3),
     ("brightness", 3),
     ("contrast", 3),
+    ("elastic_transform", 3),
+    ("pixelate", 3),
+    ("jpeg_compression", 3),
 )
 BATCH = 6144  # bench.py's batch
 FAILURE_THRESHOLD = 0.5
@@ -52,7 +63,7 @@ def cell_scalars(model: torch.nn.Module, corrupted: torch.Tensor) -> torch.Tenso
 
 def make_megastep(
     model: torch.nn.Module,
-    cells: Sequence[tuple[str, int]] = SLICE_CELLS,
+    cells: Sequence[tuple[str, int]] = BENCH_CELLS,
     device: str | torch.device | None = None,
     corruption_fn: Callable[[str], Callable] | None = None,
 ):

@@ -50,7 +50,6 @@ def test_severity_table_equals_fav_tpu(table):
 
 def test_corruption_names_equal_fav_tpu():
     assert tuple(tc.CORRUPTION_NAMES) == tuple(jc.CORRUPTION_NAMES)
-    assert set(tc.SLICE_FAMILIES) <= set(tc.CORRUPTION_NAMES)
 
 
 # ── transforms fed the oracle's draws ──────────────────────────────────────
@@ -261,7 +260,7 @@ def test_box_muller_is_standard_normal():
 
 # ── plain versions, wrappers and router ────────────────────────────────────
 
-@pytest.mark.parametrize("name", tc.SLICE_FAMILIES)
+@pytest.mark.parametrize("name", tc.CORRUPTION_NAMES)
 def test_router_returns_the_slice_families(name):
     fn = cuda_ops.corruption_fn(name)
     x = torch.from_numpy(_images(50))
@@ -274,16 +273,10 @@ def test_router_returns_the_slice_families(name):
     assert sum(cuda_ops.launch_counts().values()) == 0
 
 
-@pytest.mark.parametrize("name", [n for n in tc.CORRUPTION_NAMES if n not in tc.SLICE_FAMILIES])
-def test_router_raises_for_families_outside_the_slice(name):
-    for router in (cuda_ops.corruption_fn, tc.corruption_fn):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            router(name)
-
-
 def test_router_rejects_unknown_names():
-    with pytest.raises(NotImplementedError, match="unknown"):
-        cuda_ops.corruption_fn("not_a_family")
+    for router in (cuda_ops.corruption_fn, tc.corruption_fn):
+        with pytest.raises(NotImplementedError, match="unknown"):
+            router("not_a_family")
 
 
 @pytest.mark.parametrize("name", ["gaussian_noise", "shot_noise", "impulse_noise"])
@@ -303,7 +296,7 @@ def test_noise_plain_is_its_draws_then_its_transform(name):
     assert not torch.equal(got, tc.corruption_fn(name)(seed + 1, x, 3))
 
 
-@pytest.mark.parametrize("name", tc.SLICE_FAMILIES)
+@pytest.mark.parametrize("name", tc.CORRUPTION_NAMES)
 def test_wrappers_check_their_input(name):
     fn = cuda_ops.corruption_fn(name)
     x = torch.from_numpy(_images(70))

@@ -163,7 +163,8 @@ def test_build_targets_sm90a_without_fast_math():
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "-shared" in flags
-    assert "torch/extension.h" not in (_build.CSRC / "corruptions.cu").read_text()
+    for src in _build.CSRC.glob("*.cu*"):
+        assert "torch/extension.h" not in src.read_text(), src.name
 
 
 def test_library_path_is_keyed_by_the_source(monkeypatch, tmp_path):
@@ -181,20 +182,22 @@ def test_library_path_is_keyed_by_the_source(monkeypatch, tmp_path):
 
 
 def test_launchers_match_their_bindings():
-    """Each bound symbol is an extern "C" launcher of the source, taking the
-    bound arguments plus the stream, and returning an error code."""
+    """Each bound symbol is an extern "C" launcher of its library's source,
+    taking the bound arguments plus the stream, and returning an error code;
+    every library exports the error-string function the binding reads."""
     from fav_tpu_torch.ops import corruptions_cuda
 
-    source = (PACKAGE / "ops" / "csrc" / "corruptions.cu").read_text()
-    extern = source[source.index('extern "C" {'):]
+    assert {k.library for k in corruptions_cuda.KERNELS.values()} == {"corruptions", "glass", "elastic"}
     for kernel in corruptions_cuda.KERNELS.values():
+        source = (PACKAGE / "ops" / "csrc" / f"{kernel.library}.cu").read_text()
+        extern = source[source.index('extern "C" {'):]
         m = re.search(rf"int {kernel.symbol}\(([^)]*)\)", extern)
         assert m, kernel.symbol
         params = [p.strip() for p in m.group(1).split(",")]
         assert len(params) == len(kernel.argtypes), kernel.symbol
         assert params[-1] == "void* stream"
-    assert "const char* fav_cuda_error_string(int code)" in extern
-    assert "--use_fast_math" not in source.replace("(no --use_fast_math)", "")
+        assert "const char* fav_cuda_error_string(int code)" in extern
+        assert "--use_fast_math" not in source.replace("(no --use_fast_math)", "")
 
 
 def test_nothing_launches_at_import():
