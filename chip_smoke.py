@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive fav_tpu_torch on one NVIDIA card: build the CUDA kernels, hold each
 to its plain PyTorch version, run the fifteen-family detection megastep of
-``bench.py``'s cells with the nano student, and report.
+``bench.py``'s cells with the nano student, run the frame-analysis service
+on scripted camera streams and the grid's L1 pass into the policy replay,
+and report.
 
     python3 chip_smoke.py             # what the checks run
-    python3 chip_smoke.py --profile   # adds a torch.profiler table of one megastep
+    python3 chip_smoke.py --profile   # adds torch.profiler tables of one megastep and one analyzer batch
 
 Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
 
@@ -18,13 +20,30 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                K1-K6 and the Philox helper against its plain version on the
                card, with its time, the plain version's time, its bound and,
                for K6, the time of ``grid_sample`` computing the same warp;
+               K7 (frame statistics and histogram) at the service's
+               (32, 240, 320) and the grid's (6144, 32, 32), exact, beside
+               ``torch.bincount``'s time for the histogram part; K8
+               (corrupt-normalize) at (6144, 32, 32, 3), at sigma 0 and 0.18;
 4. golden   -- the nano student's bf16 logits on fixed images against the
                JAX package's, committed in ``weights/student_nano.golden.json``;
 5. megastep -- one megastep at batch 6144 over all fifteen cells with the
                launch counts reset just before and read just after (K1, K2,
                K3, K5, K6 once each, K4 twice); 2 warm-up and 8 timed
                megasteps; each family's corruption time; then one megastep
-               against the same megastep through the plain versions.
+               against the same megastep through the plain versions;
+6. monitor  -- the analysis service at 240x320, capacity 64, with 32
+               scripted streams (8 each OK, frozen, blank, corrupted) for 60
+               ticks at 30 Hz, counts reset just before: K7 once per
+               dispatched batch; statuses and anomalies against the JAX
+               package's golden (``weights/monitor.golden.json``); the same
+               frames through a service on the plain versions give the same
+               results, and both replay (tiled to 900 ticks) to the same
+               policies; the trust goldens; the batched analyzer's frames/s,
+               the service's dispatch-to-result latency, the replay's ms;
+7. policy   -- the 15 ``BENCH_CELLS`` at batch 6144, severity 3: corrupt,
+               ``l1_rows`` (K7), the nano confidence and ``grid_policy`` over
+               900 ticks, counts reset just before (K7 15 times); ``l1_rows``
+               through K7 equal to ``l1_rows`` through the plain versions.
 
 The line before the last is one JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -134,6 +153,42 @@ MEGASTEP_TOL = 2e-3
 # twice that.
 GOLDEN_ATOL = 0.125
 
+# K7 per pixel, counted from csrc/frame_stats.cu: the index, its row and
+# column (4), four REFLECT_101 folds (3 each) and neighbour offsets (4), the
+# Laplacian (5), the four sums (Σg 1, Σlap 2, Σlap² 3, Σ|g - p| 3), the
+# histogram's range test, match and leader test (4) and its atomic (1).
+K7_OPS_PER_PIXEL = 4 + 4 * 3 + 4 + 5 + 9 + 5
+K7_SHAPES = ((32, 240, 320), (6144, 32, 32))  # the service's bucket 32, the grid's batch
+# K8 per element: with noise, K1's (two quarter Philox calls, two uniform
+# maps, log, sqrt, cos and three products) and its add; the mean's add; the
+# photometric part (4); the clip (2); the normalisation (2).
+K8_OPS_PER_ELEMENT = {
+    True: 2 * PHILOX_PER_ELEMENT + 2 * 4 + 12 + 4 + 16 + 3 + 1 + 1 + 4 + 2 + 2,
+    False: 1 + 4 + 2 + 2,
+}
+K8_CONSTANTS = {"bright": 0.1, "contrast": 0.5, "mean": 0.5, "scale": 2.0}  # tests/test_pallas.py:89
+K8_SIGMAS = (0.0, 0.18)  # as tests/test_pallas.py runs it; gaussian noise's severity-3 sigma
+# K8 against its plain version: the per-image mean is summed in another
+# order (as K4's contrast); with noise, K1's logf/cosf ulps as well.
+K8_TOL = {False: 1e-6, True: 1e-5}
+# K7 and the plain version form the same integer sums and divide them once:
+# statistics and histograms are held equal, and so is everything the
+# analyzer derives from them on the two routes.
+# The monitor run against the JAX package's golden: fav_tpu sums in float32
+# where the port's statistics are exact (tests/test_torch_signal.py), and
+# the service's dicts round the anomaly to 6 digits.
+MONITOR_ATOL = 1e-5 + 5e-7
+MONITOR_FPS_ITERS = 20
+REPLAY_RELIABILITY_TOL = 1e-12
+# docs/parity.md:37 through the port's scan: (tick, field, value, tolerance)
+TRUST_GOLDENS = (
+    (50, "reliability", 0.510000, 1e-6),  # after FROZEN x50
+    (80, "reliability", 0.0, 1e-9),  # after BLANK x30
+    (180, "reliability", 0.0, 1e-9),  # after CORRUPTED x100
+    (380, "reliability", 0.504917, 1e-6),  # after OK x200
+    (380, "anomaly_integral", 0.036049, 1e-6),
+)
+
 
 def phase(name: str, msg: str = "") -> None:
     print(f"[chip_smoke] {name:9s} t={time.perf_counter() - T0:7.2f}s  {msg}".rstrip(), flush=True)
@@ -167,10 +222,10 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def profile_megastep(megastep, images, step_ms: float) -> None:
-    """Device time by kernel over one megastep (torch.profiler, CUPTI on the
-    card), after one profiled warm-up step; the busy share is that device
-    time over ``step_ms``, the megastep's wall time measured without the
+def profile_step(step, step_ms: float, label: str) -> None:
+    """Device time by kernel over one call of ``step`` (torch.profiler, CUPTI
+    on the card), after one profiled warm-up call; the busy share is that
+    device time over ``step_ms``, the step's wall time measured without the
     profiler."""
     import torch
     from torch.autograd import DeviceType
@@ -181,7 +236,7 @@ def profile_megastep(megastep, images, step_ms: float) -> None:
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
                  on_trace_ready=lambda p: tables.append(p.key_averages())) as prof:
         for _ in range(2):
-            megastep(images, torch.Generator().manual_seed(SEED))
+            step()
             torch.cuda.synchronize()
             prof.step()
 
@@ -195,14 +250,298 @@ def profile_megastep(megastep, images, step_ms: float) -> None:
                       and not e.key.startswith("ProfilerStep")),
                      key=dev_us, reverse=True)
     if not kernels:
-        phase("profile", "no device time in the trace: not measured")
+        phase("profile", f"{label}: no device time in the trace: not measured")
         return
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    phase("profile", f"one megastep: device kernels {busy_ms:.3f} ms of {step_ms:.3f} ms wall "
+    phase("profile", f"{label}: device kernels {busy_ms:.3f} ms of {step_ms:.3f} ms wall "
                      f"(busy share {busy_ms / step_ms:.3f}); top kernels by device time:")
     for e in kernels[:24]:
         print(f"           {dev_us(e) / 1e3:9.3f} ms {dev_us(e) / 1e3 / busy_ms:6.1%} x{e.count:<4d} {e.key[:100]}",
               flush=True)
+
+
+class LatencyRecorder:
+    """The service's ``timer``: keeps every recorded duration."""
+
+    def __init__(self):
+        self.seconds: dict[str, list[float]] = {}
+
+    def record(self, name: str, seconds: float) -> None:
+        self.seconds.setdefault(name, []).append(seconds)
+
+
+def check_k7(dev, gen, bound) -> dict:
+    """K7 against its plain version at the service's and the grid's shapes:
+    statistics and histograms exact. Times the wrapper, the plain version
+    and ``torch.bincount`` (the histogram part) at each shape."""
+    import torch
+
+    from fav_tpu_torch.ops import signal as sig
+    from fav_tpu_torch.ops import signal_cuda
+
+    shapes = {}
+    for b, h, w in K7_SHAPES:
+        gray = torch.randint(0, 256, (b, h, w), generator=gen, device=dev, dtype=torch.int32)
+        # flat frames put every pixel in one bin
+        gray[: b // 8] = torch.randint(0, 256, (b // 8, 1, 1), generator=gen, device=dev, dtype=torch.int32)
+        prev = torch.randint(0, 256, (b, h, w), generator=gen, device=dev, dtype=torch.int32)
+        has_prev = torch.arange(b, device=dev) % 4 != 0
+        stats, hist = signal_cuda.frame_statistics(gray, prev, has_prev)
+        want_stats, want_hist = sig.frame_statistics_plain(gray, prev, has_prev)
+        torch.cuda.synchronize()
+        check(torch.equal(stats, want_stats), f"K7 {(b, h, w)}: statistics differ from the plain version by "
+                                              f"{float((stats - want_stats).abs().max())}")
+        check(torch.equal(hist, want_hist), f"K7 {(b, h, w)}: histograms differ from the plain version")
+        check(bool((hist.sum(-1) == h * w).all()), f"K7 {(b, h, w)}: a histogram does not count every pixel")
+        ms = time_ms(lambda: signal_cuda.frame_statistics(gray, prev, has_prev), reps=20)
+        plain_ms = time_ms(lambda: sig.frame_statistics_plain(gray, prev, has_prev), reps=3, warmup=1)
+        keys = (gray + 256 * torch.arange(b, device=dev, dtype=torch.int32).view(b, 1, 1)).reshape(-1).long()
+        library_ms = time_ms(lambda: torch.bincount(keys, minlength=b * 256), reps=20)
+        pixels = b * h * w
+        # two int32 frames and the int32 flags read; statistics and histograms written
+        bytes_moved = 2 * pixels * 4 + b * 4 + b * 3 * 4 + b * 256 * 4
+        ops = K7_OPS_PER_PIXEL * pixels
+        bound_ms, by = bound(bytes_moved, ops)
+        shapes[f"{b}x{h}x{w}"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                  "bound_by": by, "library_ms": library_ms}
+        phase("kernels", f"K7 frame_stats {(b, h, w)}: statistics and histograms equal to the plain version; "
+                         f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}: "
+                         f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} Gop); torch.bincount (the histogram "
+                         f"part only) {library_ms:.4f} ms")
+    return shapes
+
+
+def check_k8(x, bound) -> dict:
+    """K8 against its plain version at sigma 0 and 0.18, with the constants
+    of tests/test_pallas.py:89."""
+    import torch
+
+    from fav_tpu_torch.ops import corruptions as plain
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+
+    seed = SEED + 14
+    n = x.numel()
+    out = {}
+    for sigma in K8_SIGMAS:
+        noise = sigma > 0.0
+        got = kern.corrupt_normalize(seed, x, sigma, **K8_CONSTANTS)
+        want = plain.corrupt_normalize_plain(seed, x, sigma, **K8_CONSTANTS)
+        torch.cuda.synchronize()
+        check(got.shape == x.shape and bool(torch.isfinite(got).all()), f"K8 sigma {sigma}: bad output")
+        err = float((got - want).abs().max())
+        check(err <= K8_TOL[noise], f"K8 sigma {sigma}: max diff {err} > {K8_TOL[noise]}")
+        ms = time_ms(lambda: kern.corrupt_normalize(seed, x, sigma, **K8_CONSTANTS), reps=20)
+        plain_ms = time_ms(lambda: plain.corrupt_normalize_plain(seed, x, sigma, **K8_CONSTANTS), reps=3, warmup=1)
+        bytes_moved = 2 * n * 4
+        ops = K8_OPS_PER_ELEMENT[noise] * n
+        bound_ms, by = bound(bytes_moved, ops)
+        out[f"sigma={sigma}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                 "bound_by": by}
+        phase("kernels", f"K8 corrupt_normalize (sigma {sigma}): max|kernel-plain| {err:.3e} (tol "
+                         f"{K8_TOL[noise]}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                         f"({by}: {bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} Gop); library: none (no single "
+                         f"PyTorch call draws the normals and applies the fused pass)")
+    return out
+
+
+def monitor_phase(dev, profile: bool = False) -> dict:
+    """The analysis service on the card with the scripted streams; see the
+    module docstring, phase 6."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from fav_tpu_torch.config import STATUS_NAMES, AnalyzerParams, TrustParams
+    from fav_tpu_torch.core.policy_replay import POLICY_TICKS_DEFAULT, replay_outputs, summarize_policy
+    from fav_tpu_torch.core.trust_scan import simulate_sequence
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+    from fav_tpu_torch.ops.signal import analyze_frame, init_analyzer_carry
+    from fav_tpu_torch.serving.analysis import AnalysisService
+    from fav_tpu_torch.sim.frames import GOLDEN_STREAMS, MONITOR_STREAMS, MONITOR_TICKS, scripted_stream
+    from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR
+
+    golden = json.loads((WEIGHTS_DIR / "monitor.golden.json").read_text())
+    h, w = golden["height"], golden["width"]
+    check(golden["ticks"] == MONITOR_TICKS and golden["streams"] == list(GOLDEN_STREAMS), "monitor golden is stale")
+    clips = [scripted_stream(kind, i, MONITOR_TICKS, h, w) for kind, i in MONITOR_STREAMS]
+    code = {name: i for i, name in enumerate(STATUS_NAMES)}
+
+    async def drive(service, paced: bool):
+        slots = [service.acquire_slot() for _ in clips]
+        check(None not in slots, "monitor: the service refused a slot")
+        check(await service.maybe_analyze(clips[0][0], slots[0]) is None, "monitor: ready before its warm-up")
+        while not service.ready:
+            await asyncio.sleep(0.01)
+        kern.reset_launch_counts()
+        service.dispatches = 0
+        loop = asyncio.get_running_loop()
+        start = loop.time()
+        rows = []
+        for tick in range(MONITOR_TICKS):
+            if paced:
+                await asyncio.sleep(max(0.0, start + tick / 30.0 - loop.time()))
+            rows.append(await asyncio.gather(*[service.analyze(c[tick], s) for c, s in zip(clips, slots)]))
+        counts, dispatches = kern.launch_counts(), service.dispatches
+        await service.close()
+        return rows, counts, dispatches, loop.time() - start
+
+    timer = LatencyRecorder()
+    service = AnalysisService(AnalyzerParams(), h, w, capacity=64, timer=timer, device=dev)
+    rows, counts, dispatches, run_s = asyncio.run(drive(service, paced=True))
+    want = {k: 0 for k in counts}
+    want["frame_stats"] = dispatches
+    check(dispatches >= MONITOR_TICKS and counts == want,
+          f"monitor: launch counts {counts} over {dispatches} dispatched batches; expected {want}")
+    status = np.array([[code[r["vision_status"]] for r in tick] for tick in rows]).T  # [streams, ticks]
+    anomaly = np.array([[r["anomaly_score"] for r in tick] for tick in rows]).T
+    expect = {"ok": [0] * MONITOR_TICKS, "frozen": [0] * 5 + [1] * (MONITOR_TICKS - 5),
+              "blank": [2] * MONITOR_TICKS, "corrupted": [3] * MONITOR_TICKS}
+    for j, (kind, _) in enumerate(MONITOR_STREAMS):
+        check(status[j].tolist() == expect[kind], f"monitor: stream {j} ({kind}) statuses {status[j].tolist()}")
+    g_status = np.asarray(golden["status"])
+    g_anomaly = np.asarray(golden["anomaly"])
+    check(np.array_equal(status[list(GOLDEN_STREAMS)], g_status), "monitor: statuses differ from the JAX golden")
+    gerr = float(np.abs(anomaly[list(GOLDEN_STREAMS)] - g_anomaly).max())
+    check(gerr <= MONITOR_ATOL, f"monitor: anomalies {gerr} from the JAX golden (tol {MONITOR_ATOL})")
+    lat = np.asarray(timer.seconds.get("analysis_device", [])) * 1e3
+    check(lat.size == dispatches, f"monitor: {lat.size} latencies for {dispatches} batches")
+    phase("monitor", f"{len(clips)} streams x {MONITOR_TICKS} ticks at {h}x{w} in {run_s:.3f} s: {dispatches} "
+                     f"batches, launches {counts}; statuses as scripted; the {len(GOLDEN_STREAMS)} golden streams "
+                     f"equal the JAX statuses, anomalies within {gerr:.2e} (tol {MONITOR_ATOL:.2e})")
+    phase("monitor", f"dispatch-to-result latency per batch: mean {lat.mean():.3f} ms, median "
+                     f"{np.median(lat):.3f} ms, max {lat.max():.3f} ms ({lat.size} batches)")
+
+    # the same frames through the plain versions on the card
+    plain_rows, plain_counts, _, _ = asyncio.run(drive(
+        AnalysisService(AnalyzerParams(), h, w, capacity=64, device=dev, plain=True), paced=False))
+    check(plain_counts["frame_stats"] == 0, "monitor: the plain route launched K7")
+    check(plain_rows == rows, "monitor: the plain route's results differ from K7's")
+    idx = np.arange(POLICY_TICKS_DEFAULT) % MONITOR_TICKS
+    p_status = np.array([[code[r["vision_status"]] for r in tick] for tick in plain_rows]).T
+    p_anomaly = np.array([[r["anomaly_score"] for r in tick] for tick in plain_rows]).T
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = replay_outputs(status[:, idx], anomaly[:, idx].astype(np.float64), device=dev)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t) * 1e3
+    plain_outs = replay_outputs(p_status[:, idx], p_anomaly[:, idx].astype(np.float64), device=dev)
+    check(torch.equal(outs.policy, plain_outs.policy), "monitor: policy codes differ between the routes")
+    rel_err = float((outs.reliability - plain_outs.reliability).abs().max())
+    check(rel_err <= REPLAY_RELIABILITY_TOL, f"monitor: reliabilities differ by {rel_err}")
+    summary = summarize_policy(outs)
+    plain_summary = summarize_policy(plain_outs)
+    for a, b in zip(summary, plain_summary):
+        check(all(a[k] == b[k] for k in a if k.startswith("policy_share")), "monitor: policy shares differ")
+    phase("monitor", f"replay of [{len(clips)}, {POLICY_TICKS_DEFAULT}] on the card: {replay_ms:.3f} ms; the "
+                     f"plain route's replay equal (policy codes and shares exact, reliabilities within "
+                     f"{rel_err:.1e})")
+    for kind in expect:
+        j = next(j for j, (k, _) in enumerate(MONITOR_STREAMS) if k == kind)
+        r = summary[j]
+        phase("monitor", f"  {kind:9s} allowed {r['policy_share_vision_allowed']:.4f} declining "
+                         f"{r['policy_share_vision_declining']:.4f} degraded {r['policy_share_vision_degraded']:.4f} "
+                         f"blocked {r['policy_share_vision_blocked']:.4f}, to BLOCKED {r['time_to_blocked_s']:.3f} s, "
+                         f"final reliability {r['final_reliability']:.6f}")
+
+    # the trust goldens through the port's scan on the card
+    dt = 1.0 / 30.0
+    seq = ([(0, 0.019, True)] + [(1, 0.019, True)] * 50 + [(2, 0.0, False)] * 30
+           + [(3, 0.0, False)] * 100 + [(0, 0.019, True)] * 200)
+    st = torch.tensor([s for s, _, _ in seq], dtype=torch.int32, device=dev)
+    an = torch.tensor([a for _, a, _ in seq], dtype=torch.float64, device=dev)
+    ha = torch.tensor([x for _, _, x in seq], dtype=torch.bool, device=dev)
+    _, trust = simulate_sequence(TrustParams(), st, an, ha, torch.full((len(seq),), dt, dtype=torch.float64,
+                                                                      device=dev))
+    got = []
+    for tick, field, value, tol in TRUST_GOLDENS:
+        v = float(getattr(trust, field)[tick])
+        check(abs(v - value) <= tol, f"trust golden: {field}[{tick}] = {v}, expected {value} within {tol}")
+        got.append(f"{field}[{tick}] {v:.6f}")
+    phase("monitor", "trust goldens on the card (docs/parity.md:37): " + ", ".join(got))
+
+    # the batched analyzer at bucket 32, frames already on the card
+    frames = torch.from_numpy(np.stack([c[1] for c in clips])).to(dev)
+    fps = {}
+    for route, plain_route in (("K7", False), ("plain", True)):
+        carry = init_analyzer_carry(h, w, (frames.shape[0],), device=dev)
+        for _ in range(3):
+            analyze_frame(AnalyzerParams(), carry, frames, plain=plain_route)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(MONITOR_FPS_ITERS):
+            analyze_frame(AnalyzerParams(), carry, frames, plain=plain_route)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t) / MONITOR_FPS_ITERS * 1e3
+        fps[route] = {"batch_ms": batch_ms, "frames_per_s": frames.shape[0] / (batch_ms / 1e3)}
+        if profile and not plain_route:
+            profile_step(lambda: analyze_frame(AnalyzerParams(), carry, frames), batch_ms,
+                         f"one analyzer batch of {frames.shape[0]} at {h}x{w}")
+    phase("monitor", f"batched analyzer at bucket {frames.shape[0]}, {h}x{w}: {fps['K7']['batch_ms']:.3f} ms a "
+                     f"batch, {fps['K7']['frames_per_s']:.0f} frames/s through K7 (plain versions "
+                     f"{fps['plain']['batch_ms']:.3f} ms, {fps['plain']['frames_per_s']:.0f} frames/s)")
+    return {"counts": counts, "dispatches": dispatches, "latency_ms_mean": float(lat.mean()),
+            "latency_ms_median": float(np.median(lat)), "latency_ms_max": float(lat.max()),
+            "replay_ms": replay_ms, "analyzer": fps, "golden_max_abs_err": gerr}
+
+
+def policy_phase(model, images, dev) -> dict:
+    """The grid's L1 pass and policy replay over the 15 cells; see the
+    module docstring, phase 7."""
+    import torch
+
+    from fav_tpu_torch.core.policy_replay import POLICY_TICKS_DEFAULT, grid_policy
+    from fav_tpu_torch.models.uncertainty import msp
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+    from fav_tpu_torch.parallel.sweep import l1_rows
+    from fav_tpu_torch.pipeline import BENCH_CELLS, SEED_HIGH
+
+    seeds = torch.randint(0, SEED_HIGH, (len(BENCH_CELLS),), generator=torch.Generator().manual_seed(SEED + 7))
+    with torch.no_grad():
+        clean = model(images).argmax(-1)
+    kern.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    corrupted, rows = [], {"l1_status": [], "l1_anomaly": [], "conf": [], "correct": []}
+    with torch.no_grad():
+        for (name, severity), seed in zip(BENCH_CELLS, seeds.tolist()):
+            x = kern.corruption_fn(name)(seed, images, severity)
+            status, anomaly = l1_rows(x)
+            logits = model(x)
+            rows["l1_status"].append(status)
+            rows["l1_anomaly"].append(anomaly)
+            rows["conf"].append(msp(logits))
+            rows["correct"].append(logits.argmax(-1) == clean)
+            corrupted.append(x)
+    rows = {k: torch.stack(v) for k, v in rows.items()}
+    summaries = grid_policy(BENCH_CELLS, rows, device=dev)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    counts = kern.launch_counts()
+    expected = {"gaussian_noise": 1, "shot_noise": 1, "impulse_noise": 1, "photometric": 2, "glass_resample": 1,
+                "elastic_warp": 1, "frame_stats": len(BENCH_CELLS), "corrupt_normalize": 0,
+                "philox_uniform": PHILOX_DRAWS_PER_MEGASTEP}
+    check(counts == expected, f"policy: launch counts {counts}, expected {expected}")
+    for (name, _), x, status, anomaly in zip(BENCH_CELLS, corrupted, rows["l1_status"], rows["l1_anomaly"]):
+        p_status, p_anomaly = l1_rows(x, plain=True)
+        check(torch.equal(status, p_status) and torch.equal(anomaly, p_anomaly),
+              f"policy: {name}: l1_rows through K7 differ from the plain versions")
+    for r in summaries:
+        shares = sum(v for k, v in r.items() if k.startswith("policy_share"))
+        check(abs(shares - 1.0) < 1e-9 and 0.0 <= r["min_reliability"] <= r["final_reliability"] + 1e-12 <= 1.0 + 1e-12,
+              f"policy: implausible summary {r}")
+    phase("policy", f"{len(BENCH_CELLS)} cells at batch {images.shape[0]}: corrupt, l1_rows (K7), nano confidence "
+                     f"and grid_policy over {POLICY_TICKS_DEFAULT} ticks in {step_s * 1e3:.3f} ms; launches "
+                     f"{counts}; l1_rows through K7 equal to the plain versions in every cell")
+    counts_l1 = rows["l1_status"].cpu()
+    for i, ((name, severity), r) in enumerate(zip(BENCH_CELLS, summaries)):
+        frac = [float((counts_l1[i] == c).float().mean()) for c in range(4)]
+        phase("policy", f"  {name:17s} L1 ok/frozen/blank/corrupted {frac[0]:.3f}/{frac[1]:.3f}/{frac[2]:.3f}/"
+                        f"{frac[3]:.3f}; allowed {r['policy_share_vision_allowed']:.4f} declining "
+                        f"{r['policy_share_vision_declining']:.4f} degraded {r['policy_share_vision_degraded']:.4f} "
+                        f"blocked {r['policy_share_vision_blocked']:.4f}, to BLOCKED {r['time_to_blocked_s']:.3f} s, "
+                        f"final {r['final_reliability']:.6f}, allowed-wrong {r['allowed_wrong_share']:.4f}")
+    return {"counts": counts, "step_ms": step_s * 1e3, "summaries": summaries}
 
 
 def main(argv: list[str]) -> int:
@@ -388,6 +727,10 @@ def main(argv: list[str]) -> int:
                      f"{library_ms:.4f} ms (max|grid_sample-kernel| {lib_err:.3e}, another order of operations)")
     del got, ys, xs, x_nchw, grid
 
+    # K7 at the service's and the grid's shapes; K8 at the megastep's
+    k7_report = check_k7(dev, gen, bound)
+    k8_report = check_k8(x, bound)
+
     # ── 4. the nano student against the JAX package's golden logits ──────
     model, meta = load_student("student_nano", device=dev)
     golden = json.loads((WEIGHTS_DIR / "student_nano.golden.json").read_text())
@@ -414,7 +757,8 @@ def main(argv: list[str]) -> int:
     torch.cuda.synchronize()
     counts = kern.launch_counts()
     expected = {"gaussian_noise": 1, "shot_noise": 1, "impulse_noise": 1, "photometric": 2, "glass_resample": 1,
-                "elastic_warp": 1, "philox_uniform": PHILOX_DRAWS_PER_MEGASTEP}
+                "elastic_warp": 1, "frame_stats": 0, "corrupt_normalize": 0,
+                "philox_uniform": PHILOX_DRAWS_PER_MEGASTEP}
     check(counts == expected, f"launch counts {counts}, expected {expected}")
     vals = out.cpu()
     check(vals.shape == (3,) and bool(torch.isfinite(vals).all()), f"megastep output {vals}")
@@ -457,7 +801,13 @@ def main(argv: list[str]) -> int:
     check(merr <= MEGASTEP_TOL, f"megastep kernels vs plain: {kernel_out.tolist()} vs {plain_out.tolist()}")
     phase("megastep", f"kernels vs plain versions: max abs diff {merr:.3e} (tol {MEGASTEP_TOL})")
     if "--profile" in argv:
-        profile_megastep(megastep, images, step_ms)
+        profile_step(lambda: megastep(images, torch.Generator().manual_seed(SEED)), step_ms, "one megastep")
+
+    # ── 6. the analysis service on scripted streams ───────────────────────
+    monitor = monitor_phase(dev, profile="--profile" in argv)
+
+    # ── 7. the grid's L1 pass into the policy replay ──────────────────────
+    policy = policy_phase(model, images, dev)
 
     # ── report ─────────────────────────────────────────────────────────────
     pallas = "fav_tpu/ops/corruptions_pallas.py"
@@ -490,12 +840,39 @@ def main(argv: list[str]) -> int:
         entries.append({"name": f"{r['kid']} {name}", "route": "cuda", "source": f"{csrc}/{src}",
                         "replaces": replaces, "launches": counts[name], **{k: r[k] for k in keys},
                         "library_ms": r["library_ms"]})
+    signal_pallas = "fav_tpu/ops/signal_pallas.py"
+    k7_top = k7_report["32x240x320"]
+    entries.append({
+        "name": "K7 frame_stats", "route": "cuda", "source": f"{csrc}/frame_stats.cu",
+        "replaces": f"{signal_pallas}:51",
+        "launches": monitor["counts"]["frame_stats"] + policy["counts"]["frame_stats"],
+        **{k: k7_top[k] for k in keys}, "library_ms": k7_top["library_ms"],
+        "library_note": "torch.bincount computes the histogram part only",
+        "variants": k7_report,
+    })
+    k8_top = k8_report[f"sigma={K8_SIGMAS[-1]}"]
+    entries.append({
+        "name": "K8 corrupt_normalize", "route": "cuda", "source": f"{csrc}/corruptions.cu",
+        "replaces": f"{pallas}:129", "launches": 0, **{k: k8_top[k] for k in keys}, "library_ms": None,
+        "path_note": "no path of fav_tpu calls corrupt_normalize_pallas; held to its plain version only",
+        "variants": k8_report,
+    })
+    paths = {"megastep": counts, "monitor": monitor["counts"], "policy": policy["counts"]}
+    kernel_keys = {"K1 gaussian_noise": "gaussian_noise", "K2 shot_noise": "shot_noise",
+                   "K3 impulse_noise": "impulse_noise", "K4 photometric": "photometric",
+                   "K5 glass_resample": "glass_resample", "K6 elastic_warp": "elastic_warp",
+                   "K7 frame_stats": "frame_stats", "K8 corrupt_normalize": "corrupt_normalize"}
+    for e in entries:
+        e["launches_by_path"] = {path: c[kernel_keys[e["name"]]] for path, c in paths.items()}
     r = report["philox_uniform"]
     helpers = [{"name": "philox_uniform", "route": "cuda", "source": f"{csrc}/corruptions.cu",
                 "replaces": None, "launches": counts["philox_uniform"], **{k: r[k] for k in keys},
-                "library_ms": None}]
+                "library_ms": None,
+                "launches_by_path": {path: c["philox_uniform"] for path, c in paths.items()}}]
     print(json.dumps({"kernels": entries, "helpers": helpers, "megastep_ms": step_ms, "img_per_s": img_s,
-                      "family_ms": family_ms, "forward_ms": forward_ms}), flush=True)
+                      "family_ms": family_ms, "forward_ms": forward_ms,
+                      "monitor": {k: v for k, v in monitor.items() if k != "counts"},
+                      "policy_step_ms": policy["step_ms"]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

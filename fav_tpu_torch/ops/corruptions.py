@@ -78,6 +78,7 @@ __all__ = [
     "photometric",
     "brightness",
     "contrast",
+    "corrupt_normalize_from_normal",
     "defocus_blur",
     "motion_index",
     "motion_from_index",
@@ -101,6 +102,7 @@ __all__ = [
     "impulse_noise_plain",
     "brightness_plain",
     "contrast_plain",
+    "corrupt_normalize_plain",
     "glass_resample_plain",
     "glass_blur_plain",
     "motion_blur_plain",
@@ -279,6 +281,19 @@ def photometric(x: torch.Tensor, bright: float, contrast_c: float) -> torch.Tens
 
 def brightness(x: torch.Tensor, severity: int) -> torch.Tensor:
     return photometric(x, sev_param(BRIGHTNESS_C, severity), 1.0)
+
+
+def corrupt_normalize_from_normal(x: torch.Tensor, z: torch.Tensor | None, sigma: float, bright: float,
+                                  contrast: float, mean: float, scale: float) -> torch.Tensor:
+    """``(clip((x - mu) contrast + mu + bright + sigma z) - mean) scale``, mu
+    the per-image mean, one clip (``corruptions_pallas.py:129-140``), given
+    the standard normals ``z`` (``None`` when ``sigma`` is 0). The mean is
+    taken whatever ``contrast`` is, as the TPU kernel takes it."""
+    mu = x.mean(dim=tuple(range(1, x.ndim)), keepdim=True)
+    y = (x - mu) * contrast + mu + bright
+    if sigma > 0.0:
+        y = y + sigma * z
+    return (torch.clamp(y, 0.0, 1.0) - mean) * scale
 
 
 def contrast(x: torch.Tensor, severity: int) -> torch.Tensor:
@@ -591,6 +606,16 @@ def shot_noise_plain(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Ten
 def impulse_noise_plain(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
     """Plain K3: draw 0, then ``impulse_from_uniform``."""
     return impulse_from_uniform(x, uniform_field(seed, x.shape, 0, x.device), severity)
+
+
+def corrupt_normalize_plain(seed: int, x: torch.Tensor, sigma: float = 0.0, bright: float = 0.0,
+                            contrast: float = 1.0, mean: float = 0.0, scale: float = 1.0) -> torch.Tensor:
+    """Plain K8: K1's normals (Box-Muller on draws 0 and 1) when ``sigma`` > 0,
+    no draws otherwise, then ``corrupt_normalize_from_normal``."""
+    z = None
+    if sigma > 0.0:
+        z = box_muller(uniform_field(seed, x.shape, 0, x.device), uniform_field(seed, x.shape, 1, x.device))
+    return corrupt_normalize_from_normal(x, z, sigma, bright, contrast, mean, scale)
 
 
 def brightness_plain(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:

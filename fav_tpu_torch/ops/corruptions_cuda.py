@@ -1,5 +1,6 @@
-"""Wrappers of CUDA kernels K1-K6 and the Philox uniform helper, and the
-router of all fifteen corruption families.
+"""Wrappers of CUDA kernels K1-K6 and K8 and the Philox uniform helper, the
+router of all fifteen corruption families, and the launch-count registry
+of every kernel of the port (K7's wrapper is in ``ops/signal_cuda.py``).
 
 Counterpart of ``fav_tpu/ops/corruptions_pallas.py`` (``_grid_call`` :157,
 the wrappers :191-253, ``glass_blur_pallas`` :421,
@@ -24,9 +25,13 @@ A kernel wrapper checks its input and then:
   count. There is no fallback: a kernel that does not build or launch
   raises.
 
-The sources are ``csrc/corruptions.cu`` (K1-K4 and the helper),
-``csrc/glass.cu`` (K5) and ``csrc/elastic.cu`` (K6); ``ops/_build.py``
-compiles them at the first launch.
+``corrupt_normalize`` (K8, ``corrupt_normalize_pallas`` :221) is the fused
+noise, brightness, contrast and normalisation pass of an input pipeline; no
+path of ``fav_tpu`` calls it.
+
+The sources are ``csrc/corruptions.cu`` (K1-K4, K8 and the helper),
+``csrc/glass.cu`` (K5), ``csrc/elastic.cu`` (K6) and ``csrc/frame_stats.cu``
+(K7); ``ops/_build.py`` compiles them at the first launch.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ __all__ = [
     "glass_blur",
     "elastic_warp",
     "elastic_transform",
+    "corrupt_normalize",
     "corruption_fn",
 ]
 
@@ -65,7 +71,7 @@ _U32 = ctypes.c_uint32
 _F32 = ctypes.c_float
 _I32 = ctypes.c_int
 
-# K4 holds one image in shared memory: d floats plus 32 bytes of its own,
+# K4 and K8 hold one image in shared memory: d floats plus 32 bytes of their own,
 # inside the 48 KB a block gets without opting in to more.
 PHOTOMETRIC_MAX_D = 11 * 1024
 # K5 and K6 hold one image per block in dynamic shared memory, within the
@@ -126,6 +132,11 @@ KERNELS = {
     # K6, replaces _elastic_kernel
     "elastic_warp": CudaKernel("elastic", "fav_elastic_warp",
                                [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]),
+    # K7, replaces signal_pallas.py:_frame_stats_kernel; wrapper in ops/signal_cuda.py
+    "frame_stats": CudaKernel("frame_stats", "fav_frame_stats", [_P, _P, _P, _P, _P, _I32, _I32, _I32, _P]),
+    # K8, replaces corruptions_pallas.py:_corrupt_normalize_kernel
+    "corrupt_normalize": CudaKernel("corruptions", "fav_corrupt_normalize",
+                                    [_P, _P, _I32, _I32, _U32, _U32, _F32, _F32, _F32, _F32, _F32, _P]),
     # helper, no TPU counterpart: the Philox uniforms of ops/random.py on the card
     "philox_uniform": CudaKernel("corruptions", "fav_philox_uniform", [_P, _I64, _U32, _U32, _U32, _P]),
 }
@@ -226,6 +237,23 @@ def contrast(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
     if _on_cpu(x, "contrast"):
         return plain.contrast_plain(seed, x, severity)
     return _photometric(x, 0.0, plain.sev_param(plain.CONTRAST_C, severity))
+
+
+def corrupt_normalize(seed: int, x: torch.Tensor, sigma: float = 0.0, bright: float = 0.0,
+                      contrast: float = 1.0, mean: float = 0.0, scale: float = 1.0) -> torch.Tensor:
+    """K8: ``(clip((x - mu) contrast + mu + bright + sigma z) - mean) scale``,
+    mu the per-image mean, z from Box-Muller on Philox draws 0 and 1 (K1's
+    normals); with ``sigma`` 0 no draws are made."""
+    if _on_cpu(x, "corrupt_normalize"):
+        return plain.corrupt_normalize_plain(seed, x, sigma, bright, contrast, mean, scale)
+    b = x.shape[0]
+    d = x.numel() // b
+    if d > PHOTOMETRIC_MAX_D:
+        raise ValueError(f"corrupt_normalize holds at most {PHOTOMETRIC_MAX_D} values per image, got {d}")
+    out = torch.empty_like(x)
+    KERNELS["corrupt_normalize"].launch(x.device, x.data_ptr(), out.data_ptr(), b, d, *seed_key(seed),
+                                        sigma, bright, contrast, mean, scale)
+    return out
 
 
 def uniform(seed: int, shape, draw: int, device) -> torch.Tensor:

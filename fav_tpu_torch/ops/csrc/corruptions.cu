@@ -1,4 +1,4 @@
-// Corruption kernels K1-K4 and the Philox uniform helper for Hopper (sm_90a), with a plain C interface.
+// Corruption kernels K1-K4, K8 and the Philox uniform helper for Hopper (sm_90a), with a plain C interface.
 //
 // Built by fav_tpu_torch/ops/_build.py with plain nvcc into a shared library
 // and bound with ctypes by fav_tpu_torch/ops/corruptions_cuda.py. Every
@@ -192,6 +192,71 @@ __global__ void photometric_kernel(const float* __restrict__ x, float* __restric
   }
 }
 
+// ── K8: fused corrupt-normalize ───────────────────────────────────────────
+// Replaces corruptions_pallas.py:_corrupt_normalize_kernel (:129).
+// out = (clip((x - mu) contrast + mu + bright + sigma z) - mean) scale, mu
+// the per-image mean, z K1's normal (Box-Muller on Philox draws 0 and 1 of
+// the element's group), one clip. Bound: bytes (about 100 operations per
+// element with noise, 10 without). One block per image, as K4: the image is
+// read once into shared memory while the block sums it in float32 for mu,
+// then each thread walks the Philox groups (4 elements) that cover its
+// image, so the draws are those of the flat tensor's stream even where d is
+// not a multiple of 4 and a group straddles two images. With sigma = 0 no
+// draws are made. The operations are the plain version's, in its order.
+__global__ void corrupt_normalize_kernel(const float* __restrict__ x, float* __restrict__ out, int d,
+                                         uint32_t k0, uint32_t k1, float sigma, float bright,
+                                         float contrast, float mean, float scale) {
+  extern __shared__ float tile[];
+  __shared__ float warp_sums[kThreads / 32];
+  const long long base = static_cast<long long>(blockIdx.x) * d;
+  const float* xi = x + base;
+  float s = 0.0f;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    const float v = xi[i];
+    tile[i] = v;
+    s = __fadd_rn(s, v);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = s;
+  __syncthreads();  // also publishes tile[]
+  if (warp == 0) {
+    const int nwarps = blockDim.x >> 5;
+    s = lane < nwarps ? warp_sums[lane] : 0.0f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
+    if (lane == 0) warp_sums[0] = __fdiv_rn(s, static_cast<float>(d));
+  }
+  __syncthreads();
+  const float mu = warp_sums[0];
+  const bool noise = sigma > 0.0f;
+  const long long g_first = base / 4;
+  const long long g_last = (base + d - 1) / 4;
+  for (long long g = g_first + threadIdx.x; g <= g_last; g += blockDim.x) {
+    uint4 w1 = make_uint4(0u, 0u, 0u, 0u), w2 = w1;
+    if (noise) {
+      w1 = draw_words(g, 0u, k0, k1);
+      w2 = draw_words(g, 1u, k0, k1);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long i = 4 * g + j - base;
+      if (i < 0 || i >= d) continue;
+      float y = __fadd_rn(__fadd_rn(__fmul_rn(__fsub_rn(tile[i], mu), contrast), mu), bright);
+      if (noise) {
+        const float u1 = bits_to_uniform(word(w1, j));
+        const float u2 = bits_to_uniform(word(w2, j));
+        const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
+        const float z = __fmul_rn(r, cosf(__fmul_rn(6.2831854820251465f, u2)));
+        y = __fadd_rn(y, __fmul_rn(sigma, z));
+      }
+      out[base + i] = __fmul_rn(__fsub_rn(clip01(y), mean), scale);
+    }
+  }
+}
+
 // ── Philox uniforms (a helper, no TPU counterpart) ────────────────────────
 // Writes draw `draw` of the seed as float32 uniforms in (0, 1], in the
 // stream layout above: the words ops/random.py's uniform01 computes. The
@@ -257,7 +322,7 @@ int fav_shot_noise(const float* x, float* out, long long n, uint32_t seed_lo, ui
   return static_cast<int>(cudaGetLastError());
 }
 
-// d floats of shared memory per block: the wrapper keeps d <= 12288 (48 KB).
+// d floats of shared memory per block: the wrapper keeps d <= 11264 (44 KB).
 int fav_photometric(const float* x, float* out, int batch, int d, float bright, float contrast,
                     void* stream) {
   if (batch <= 0 || d <= 0) return 0;
@@ -265,6 +330,17 @@ int fav_photometric(const float* x, float* out, int batch, int d, float bright, 
   const size_t smem = use_mean ? static_cast<size_t>(d) * sizeof(float) : 0;
   photometric_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, out, d, bright, contrast, use_mean);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// d floats of shared memory per block: the wrapper keeps d <= 11264 (44 KB).
+int fav_corrupt_normalize(const float* x, float* out, int batch, int d, uint32_t seed_lo, uint32_t seed_hi,
+                          float sigma, float bright, float contrast, float mean, float scale,
+                          void* stream) {
+  if (batch <= 0 || d <= 0) return 0;
+  corrupt_normalize_kernel<<<batch, kThreads, static_cast<size_t>(d) * sizeof(float),
+                             static_cast<cudaStream_t>(stream)>>>(
+      x, out, d, seed_lo, seed_hi, sigma, bright, contrast, mean, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

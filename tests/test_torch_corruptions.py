@@ -11,6 +11,13 @@ Tolerances: transforms given the oracle's draws are exact (the same float32
 operations in the same order); contrast is held to 1e-6, the bar
 ``tests/test_pallas.py`` sets for the Pallas kernel, because the per-image
 mean is summed in another order.
+
+K8 (``corrupt_normalize``): its plain version against
+``corrupt_normalize_pallas`` in interpret mode at sigma 0 within 1e-6 (the
+per-image mean summed in another order; interpret mode stubs the TPU's
+generator to zeros, ``corruptions_pallas.py:183-185``, so only sigma 0 is
+comparable); at sigma > 0 against the formula fed its own Philox normals,
+within the same 1e-6, and the law of its noise against N(0, sigma**2).
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import pytest
 import torch
 
 from fav_tpu.ops import corruptions as jc
-from fav_tpu.ops.corruptions_pallas import brightness_pallas, contrast_pallas
+from fav_tpu.ops.corruptions_pallas import brightness_pallas, contrast_pallas, corrupt_normalize_pallas
 from fav_tpu_torch.ops import corruptions as tc
 from fav_tpu_torch.ops import corruptions_cuda as cuda_ops
 from fav_tpu_torch.ops.random import bits_to_uniform, philox4x32, random_words, uniform01
@@ -316,3 +323,76 @@ def test_seeds_outside_64_bits_are_refused():
         cuda_ops.gaussian_noise(-1, x, 3)
     with pytest.raises(ValueError):
         cuda_ops.impulse_noise(1 << 64, x, 3)
+
+
+# ── K8: fused corrupt-normalize ────────────────────────────────────────────
+
+K8_TOL = 1e-6  # the per-image mean is summed in another order
+
+
+@pytest.mark.parametrize("consts", [
+    dict(bright=0.1, contrast=0.5, mean=0.5, scale=2.0),  # tests/test_pallas.py:89
+    dict(bright=-0.2, contrast=1.0, mean=0.0, scale=1.0),
+    dict(bright=0.3, contrast=1.7, mean=0.45, scale=4.4),
+])
+def test_corrupt_normalize_matches_pallas_at_sigma_zero(consts):
+    x = _images(80, (8, 32, 32, 3))
+    got = cuda_ops.corrupt_normalize(7, torch.from_numpy(x), sigma=0.0, **consts)
+    want = corrupt_normalize_pallas(7, jnp.asarray(x), sigma=0.0, interpret=True, **consts)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=K8_TOL, rtol=0)
+
+
+def test_corrupt_normalize_is_its_formula_given_its_normals():
+    """sigma 0.18 (gaussian noise at severity 3): the plain version is the
+    jnp formula fed the port's own Philox normals (draws 0 and 1)."""
+    x = _images(81, (8, 32, 32, 3))
+    seed, sigma = 1234, 0.18
+    n = x.size
+    z = tc.box_muller(uniform01(seed, n, 0), uniform01(seed, n, 1)).reshape(x.shape)
+    got = cuda_ops.corrupt_normalize(seed, torch.from_numpy(x), sigma=sigma, bright=0.1, contrast=0.5,
+                                     mean=0.5, scale=2.0)
+    xj = jnp.asarray(x)
+    mu = jnp.mean(xj, axis=(1, 2, 3), keepdims=True)
+    want = (jnp.clip((xj - mu) * 0.5 + mu + 0.1 + sigma * jnp.asarray(z.numpy()), 0, 1) - 0.5) * 2.0
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=K8_TOL, rtol=0)
+    np.testing.assert_array_equal(
+        got.numpy(), tc.corrupt_normalize_from_normal(torch.from_numpy(x), z, sigma, 0.1, 0.5, 0.5, 2.0).numpy())
+    assert not torch.equal(got, cuda_ops.corrupt_normalize(seed + 1, torch.from_numpy(x), sigma=sigma))
+
+
+def test_corrupt_normalize_noise_is_normal():
+    """Where nothing clips (contrast 0.1 keeps the base within 0.05 of the
+    mean; sigma 0.05), the residual over sigma is N(0, 1): its moments, and
+    its empirical CDF within 0.015 of the normal's (the Kolmogorov-Smirnov
+    distance's 0.1% critical value at n = 49152 is 0.0088)."""
+    x = torch.from_numpy(_images(82, (16, 32, 32, 3)))
+    sigma, c = 0.05, 0.1
+    out = cuda_ops.corrupt_normalize(55, x, sigma=sigma, contrast=c, mean=0.25, scale=3.0)
+    base = tc.corrupt_normalize_from_normal(x, None, 0.0, 0.0, c, 0.0, 1.0).double()
+    r = ((out.double() / 3.0 + 0.25) - base).flatten() / sigma
+    n = r.numel()
+    assert abs(r.mean().item()) < 6 / math.sqrt(n)
+    assert abs(r.var().item() - 1.0) < 6 * math.sqrt(2 / n)
+    srt = torch.sort(r).values
+    cdf = 0.5 * (1 + torch.erf(srt / math.sqrt(2)))
+    ecdf = torch.arange(1, n + 1, dtype=torch.float64) / n
+    assert (cdf - ecdf).abs().max().item() < 0.015
+
+
+def test_corrupt_normalize_draws_nothing_at_sigma_zero():
+    x = torch.from_numpy(_images(83))
+    a = cuda_ops.corrupt_normalize(1, x, bright=0.1, contrast=0.5, mean=0.5, scale=2.0)
+    b = cuda_ops.corrupt_normalize(2, x, bright=0.1, contrast=0.5, mean=0.5, scale=2.0)
+    assert torch.equal(a, b)
+    np.testing.assert_array_equal(a.numpy(), tc.corrupt_normalize_from_normal(x, None, 0.0, 0.1, 0.5, 0.5, 2.0))
+
+
+def test_corrupt_normalize_checks_its_input():
+    x = torch.from_numpy(_images(84))
+    with pytest.raises(TypeError):
+        cuda_ops.corrupt_normalize(1, x.double())
+    with pytest.raises(ValueError):
+        cuda_ops.corrupt_normalize(1, x.permute(0, 2, 1, 3))
+    with pytest.raises(ValueError):
+        cuda_ops.corrupt_normalize(-1, x, sigma=0.1)

@@ -187,7 +187,7 @@ def test_launchers_match_their_bindings():
     every library exports the error-string function the binding reads."""
     from fav_tpu_torch.ops import corruptions_cuda
 
-    assert {k.library for k in corruptions_cuda.KERNELS.values()} == {"corruptions", "glass", "elastic"}
+    assert {k.library for k in corruptions_cuda.KERNELS.values()} == {"corruptions", "glass", "elastic", "frame_stats"}
     for kernel in corruptions_cuda.KERNELS.values():
         source = (PACKAGE / "ops" / "csrc" / f"{kernel.library}.cu").read_text()
         extern = source[source.index('extern "C" {'):]

@@ -24,6 +24,11 @@ inverse CDF), so that cell is held within a sampling bound: the JAX cell and
 the port's cell are each drawn 8 times, and the means of their scalars must
 agree within 6 standard deviations of the difference of two 8-draw means,
 the deviation estimated from the JAX draws, plus the bf16 tolerance.
+
+The grid's L1 pass (``parallel/sweep.py:l1_rows``) is held to
+``fav_tpu.parallel.sweep._l1_rows`` on each cell's corrupted batch:
+statuses exact, anomalies within 1e-5 (``fav_tpu`` sums its statistics in
+float32, the port exactly; see tests/test_torch_signal.py).
 """
 
 from __future__ import annotations
@@ -39,8 +44,10 @@ from fav_tpu.models.uncertainty import anomaly_from_confidence as jax_anomaly
 from fav_tpu.ops import corruptions as jc
 from fav_tpu.ops import corruptions_pallas as cp
 from fav_tpu.ops import image as ji
+from fav_tpu.parallel.sweep import _l1_rows as jax_l1_rows
 from fav_tpu_torch.ops import corruptions as tc
 from fav_tpu_torch.ops import corruptions_cuda as cuda_ops
+from fav_tpu_torch.parallel.sweep import l1_rows
 from fav_tpu_torch.pipeline import BENCH_CELLS, cell_scalars, entry, make_megastep
 from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR, load_flax_npz, load_student
 
@@ -235,3 +242,43 @@ def test_entry_runs_on_the_cpu_when_asked():
     assert out["prediction"].shape == (4,) and out["prediction"].dtype == torch.int64
     conf = out["confidence"]
     assert ((conf > 0) & (conf <= 1)).all() and ((out["anomaly"] >= 0) & (out["anomaly"] <= 1)).all()
+
+
+# ── the grid's L1 pass ─────────────────────────────────────────────────────
+
+L1_ANOMALY_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("name", [n for n, _ in BENCH_CELLS])
+def test_l1_rows_match_fav_tpu(setup, name):
+    images, _, _, _, draws = setup
+    corrupted = _jax_cell(name, draws[name], jnp.asarray(images), dict(BENCH_CELLS)[name])
+    want_status, want_anomaly = jax_l1_rows(corrupted)
+    cuda_ops.reset_launch_counts()
+    status, anomaly = l1_rows(torch.from_numpy(np.array(corrupted, np.float32)))
+    assert sum(cuda_ops.launch_counts().values()) == 0  # the CPU takes the plain versions
+    assert status.dtype == torch.int32 and status.shape == (B,)
+    np.testing.assert_array_equal(status.numpy(), np.asarray(want_status))
+    np.testing.assert_allclose(anomaly.numpy(), np.asarray(want_anomaly, np.float32), atol=L1_ANOMALY_ATOL, rtol=0)
+
+
+def test_l1_rows_round_half_to_even_and_see_each_status():
+    """Levels on .5 ties round to even as ``jnp.round`` does; black, white
+    and flat images give BLANK, BLANK and CORRUPTED (entropy 0)."""
+    rng = np.random.default_rng(12)
+    ties = np.float32((np.arange(32 * 32 * 3) % 255 + 0.5) / 255.0).reshape(1, 32, 32, 3)
+    x = np.concatenate([
+        ties,
+        np.zeros((1, 32, 32, 3), np.float32),
+        np.ones((1, 32, 32, 3), np.float32),
+        np.full((1, 32, 32, 3), 0.5, np.float32),
+        rng.random((1, 32, 32, 3), dtype=np.float32),
+    ])
+    status, anomaly = l1_rows(torch.from_numpy(x))
+    want_status, want_anomaly = jax_l1_rows(jnp.asarray(x))
+    np.testing.assert_array_equal(status.numpy(), np.asarray(want_status))
+    np.testing.assert_allclose(anomaly.numpy(), np.asarray(want_anomaly, np.float32), atol=L1_ANOMALY_ATOL, rtol=0)
+    assert status[1:4].tolist() == [2, 2, 3]
+    frames = torch.round(torch.from_numpy(x[:1]).flip(-1) * 255.0).to(torch.uint8)
+    np.testing.assert_array_equal(frames.numpy(),
+                                  np.asarray(jnp.round(jnp.asarray(x[:1])[..., ::-1] * 255.0).astype(jnp.uint8)))
