@@ -3,10 +3,12 @@
 to its plain PyTorch version, run the fifteen-family detection megastep of
 ``bench.py``'s cells with the nano student, run the frame-analysis service
 on scripted camera streams and the grid's L1 pass into the policy replay,
-and report.
+train the ``classifier`` configuration with AugMix for a few steps, and
+report.
 
     python3 chip_smoke.py             # what the checks run
-    python3 chip_smoke.py --profile   # adds torch.profiler tables of one megastep and one analyzer batch
+    python3 chip_smoke.py --profile   # adds torch.profiler tables of one megastep, one analyzer batch
+                                      # and one train step
 
 Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
 
@@ -24,6 +26,9 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                (32, 240, 320) and the grid's (6144, 32, 32), exact, beside
                ``torch.bincount``'s time for the histogram part; K8
                (corrupt-normalize) at (6144, 32, 32, 3), at sigma 0 and 0.18;
+               K9a and K9b (the AugMix shear passes) at an AugMix view's
+               chain batch (768, 32, 32, 3), m = 18 and 22, exact, beside
+               ``grid_sample`` computing the same shear;
 4. golden   -- the nano student's bf16 logits on fixed images against the
                JAX package's, committed in ``weights/student_nano.golden.json``;
 5. megastep -- one megastep at batch 6144 over all fifteen cells with the
@@ -43,7 +48,19 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
 7. policy   -- the 15 ``BENCH_CELLS`` at batch 6144, severity 3: corrupt,
                ``l1_rows`` (K7), the nano confidence and ``grid_policy`` over
                900 ticks, counts reset just before (K7 15 times); ``l1_rows``
-               through K7 equal to ``l1_rows`` through the plain versions.
+               through K7 equal to ``l1_rows`` through the plain versions;
+8. train    -- first the JAX package's float32 AugMix step at widths (8, 16)
+               (``weights/train_step.golden.json``: its draws, loss and
+               per-leaf sums) reproduced through K9a/K9b; then the
+               ``classifier`` configuration (widths 64/128/256, dense 256,
+               dropout 0.1, bf16) from ``init_params`` on the synthetic set,
+               AugMix with JS 12, batch 256, lr 1e-3: 2 warm-up steps and 20
+               timed steps as two megastep chunks of 10, counts reset just
+               before (K9a 4 and K9b 2 in the first step, 88 and 44 in all);
+               the loss finite and falling; the views bit-equal between the
+               kernel and the plain route, one step of each within a stated
+               tolerance; ms per step, images/s and the split into
+               augmentation, forward+backward and optimizer (CUDA events).
 
 The line before the last is one JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -189,6 +206,50 @@ TRUST_GOLDENS = (
     (380, "anomaly_integral", 0.036049, 1e-6),
 )
 
+# Phase 8: the classifier configuration (fav_tpu/checkpoints/classifier/
+# metadata.json, the pretrain defaults), AugMix with JS 12.
+TRAIN_BATCH = 256
+TRAIN_LR = 1e-3
+TRAIN_JS_LAM = 12.0
+TRAIN_WARMUP = 2
+TRAIN_CHUNKS = 2
+TRAIN_K = 10
+TRAIN_BREAKDOWN_STEPS = 3
+# A step makes two views, each three shear passes (rows, columns, rows).
+K9_LAUNCHES_PER_STEP = {"shear_rows": 4, "shear_cols": 2}
+SHEAR_BATCH = 3 * TRAIN_BATCH  # an AugMix view's chain batch: width 3 x B
+# K9a/K9b per element, counted from csrc/shear.cu: the clip (2), floor and
+# fraction (2), two index adds and two clamps (6), the blend (4).
+SHEAR_OPS_PER_ELEMENT = 14
+# fav_tpu's golden step against the port's through K9a/K9b on the card (TF32
+# off): cuDNN and XLA sum in other orders; the classes of
+# tests/test_torch_train.py (loss, ce, js 1e-5 relative; a gradient leaf's
+# sum within 1e-4 of its absolute sum; the updated parameters 2e-5 each, so
+# a leaf's sum within 2e-5 per element).
+TRAIN_GOLDEN_RTOL = 1e-5
+# JS is a sum of p (log p - log m) terms of order 0.1 that cancel to some
+# 3e-5 at an untrained network, where float32 leaves a few ulps of those
+# terms: js is held to 1e-5 relative or 1e-7 absolute.
+TRAIN_GOLDEN_JS_ATOL = 1e-7
+TRAIN_GOLDEN_GRAD_RTOL = 1e-4
+TRAIN_GOLDEN_PARAM_ATOL = 2e-5
+# A conv whose GroupNorm has one channel per group has a bias gradient of 0
+# in exact arithmetic (the normalisation removes any per-channel constant),
+# so both libraries compute rounding noise there, which AdamW's first step
+# turns into ±lr: those biases' gradients are held to 1e-6 absolute per
+# element and their updated values to 2 lr.
+TRAIN_GOLDEN_NULL_GRAD_ATOL = 1e-6
+TRAIN_GOLDEN_NULL_PARAM_ATOL = 2 * TRAIN_LR
+# One step from the same state and generator through the kernel and the
+# plain route: the views are equal bit for bit, so only cuDNN's choice of
+# algorithms can part them (its backward may sum with atomics). The loss
+# comes from the forward, which cuDNN runs deterministically: 1e-6
+# relative. An AdamW step moves a parameter by about lr at most, so
+# gradients that differ in their last bits cannot part the parameters by
+# more than lr.
+ROUTE_LOSS_RTOL = 1e-6
+ROUTE_PARAM_ATOL = TRAIN_LR
+
 
 def phase(name: str, msg: str = "") -> None:
     print(f"[chip_smoke] {name:9s} t={time.perf_counter() - T0:7.2f}s  {msg}".rstrip(), flush=True)
@@ -201,14 +262,24 @@ def card_peaks(name: str) -> tuple[float, float, str]:
     return 3.35e12, 67e12, "H100 SXM (assumed: card not in CARD_PEAKS)"
 
 
+# Cycles of a device sleep queued before a timed run (some 5 ms at the
+# H100's 1.98 GHz): the host enqueues the run's launches meanwhile, so the
+# events time the device and not the host's ctypes and Python per launch,
+# which is longer than a small kernel (K9a/K9b: some 0.02-0.03 ms).
+QUEUE_CYCLES = 10_000_000
+
+
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events."""
+    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events
+    around calls queued behind a device sleep."""
     import torch
 
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -342,6 +413,272 @@ def check_k8(x, bound) -> dict:
                          f"({by}: {bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} Gop); library: none (no single "
                          f"PyTorch call draws the normals and applies the fused pass)")
     return out
+
+
+def check_k9(dev, gen, bound) -> dict:
+    """K9a and K9b against their plain versions at an AugMix view's chain
+    batch, exact, with shifts past the clip limits; ``grid_sample``
+    (bilinear, border, corners aligned) computes the same shear as the
+    library yardstick."""
+    import torch
+
+    from fav_tpu_torch.ops import augment as aug
+    from fav_tpu_torch.ops import augment_cuda
+
+    x = torch.rand((SHEAR_BATCH, 32, 32, 3), generator=gen, device=dev, dtype=torch.float32)
+    b, h, w, c = x.shape
+    n = x.numel()
+    mx, my = aug.shift_bounds(h, w)
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    out = {}
+    for name, kid, wrapper, plain_fn, m, rows in (
+        ("shear_rows", "K9a", augment_cuda.shear_rows, aug.shift_rows, mx, True),
+        ("shear_cols", "K9b", augment_cuda.shear_cols, aug.shift_cols, my, False),
+    ):
+        delta = (torch.rand((b, h if rows else w), generator=gen, device=dev) * 2 - 1) * (m + 2)
+        got = wrapper(x, delta, m)
+        want = plain_fn(x, delta, m)
+        torch.cuda.synchronize()
+        check(got.shape == x.shape and torch.equal(got, want),
+              f"{name}: max diff {float((got - want).abs().max())} from the plain version, expected exact")
+        ms = time_ms(lambda: wrapper(x, delta, m), reps=20)
+        plain_ms = time_ms(lambda: plain_fn(x, delta, m), reps=3, warmup=1)
+        # the same shear as sample coordinates for grid_sample
+        d = torch.clamp(delta, -m, m - 1)
+        ii = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1).expand(b, h, w)
+        jj = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w).expand(b, h, w)
+        if rows:
+            jj = jj + d.view(b, h, 1)
+        else:
+            ii = ii + d.view(b, 1, w)
+        grid = torch.stack([jj / (w - 1) * 2 - 1, ii / (h - 1) * 2 - 1], dim=-1)
+
+        def library():
+            return torch.nn.functional.grid_sample(x_nchw, grid, mode="bilinear", padding_mode="border",
+                                                   align_corners=True)
+
+        lib_err = float((library().permute(0, 2, 3, 1) - got).abs().max())
+        library_ms = time_ms(library, reps=20)
+        bytes_moved = 2 * n * 4 + delta.numel() * 4
+        ops = SHEAR_OPS_PER_ELEMENT * n
+        bound_ms, by = bound(bytes_moved, ops)
+        out[name] = {"kid": kid, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": by, "library_ms": library_ms}
+        phase("kernels", f"{kid} {name} at {tuple(x.shape)}, m={m}: equal to the plain version; kernel {ms:.4f} ms, "
+                         f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}: {bytes_moved / 1e6:.1f} MB, "
+                         f"{ops / 1e9:.3f} Gop); grid_sample {library_ms:.4f} ms (max|grid_sample-kernel| "
+                         f"{lib_err:.3e}, another order of operations)")
+    return out
+
+
+def train_golden_inputs(model, seed: int, batch: int):
+    """The golden step's inputs, made with numpy from ``seed``: flax-path
+    parameters for ``model`` (``random_flax_params``), float32 images and
+    int32 labels. ``tests/test_torch_train.py`` makes the same."""
+    import numpy as np
+
+    from fav_tpu_torch.utils.checkpoint import random_flax_params
+
+    rng = np.random.default_rng(seed)
+    images = rng.random((batch, 32, 32, 3), dtype=np.float32)
+    labels = rng.integers(0, 10, batch).astype(np.int32)
+    return random_flax_params(model, seed), images, labels
+
+
+def draws_from_json(d: dict, dev):
+    """``AugMixDraws`` from the golden's lists, float32 on ``dev``."""
+    import torch
+
+    from fav_tpu_torch.ops.augment import AugMixDraws
+
+    return AugMixDraws(**{k: torch.tensor(d[k], dtype=torch.float32, device=dev) for k in AugMixDraws._fields})
+
+
+def zero_gradient_biases(model) -> set[str]:
+    """Flax paths of the conv biases whose gradient is 0 in exact
+    arithmetic: those of a conv followed by a GroupNorm of one channel per
+    group. Convs come three a stage, the first two normalised."""
+    return {f"Conv_{3 * (i // 2) + i % 2}/bias" for i, norm in enumerate(model.norms)
+            if norm.num_groups == norm.num_channels}
+
+
+def check_train_golden(golden: dict, dev) -> dict:
+    """The JAX package's float32 AugMix step, its views made from its own
+    draws by the port (on the card through K9a/K9b), its metrics and
+    per-leaf sums held to the golden."""
+    import torch
+
+    from fav_tpu_torch.models.cnn import FailureAwareCNN
+    from fav_tpu_torch.models.train import augmix_step_core, create_train_state
+    from fav_tpu_torch.ops.augment import augmix_apply
+    from fav_tpu_torch.utils.checkpoint import flax_to_torch, torch_to_flax
+
+    model = FailureAwareCNN(widths=tuple(golden["widths"]), dense_width=golden["dense_width"], dropout_rate=0.0,
+                            compute_dtype="float32")
+    params, images, labels = train_golden_inputs(model, golden["seed"], golden["batch"])
+    model.load_state_dict(flax_to_torch(params), strict=True)
+    model.to(dev)
+    x = torch.from_numpy(images).to(dev)
+    y = torch.from_numpy(labels).long().to(dev)
+    aug1, aug2 = (augmix_apply(x, draws_from_json(d, dev)) for d in golden["draws"])
+    state = create_train_state(model, golden["lr"], golden["weight_decay"])
+    metrics = augmix_step_core(state, x, y, aug1, aug2, golden["js_lam"], None)
+    rel = {k: abs(float(metrics[k]) - golden[k]) / abs(golden[k]) for k in ("loss", "ce", "js")}
+    for k, err in rel.items():
+        atol = TRAIN_GOLDEN_JS_ATOL if k == "js" else 0.0
+        check(err <= TRAIN_GOLDEN_RTOL or abs(float(metrics[k]) - golden[k]) <= atol,
+              f"train golden: {k} {float(metrics[k])} vs {golden[k]} ({err:.2e} relative)")
+    grads = torch_to_flax({n: p.grad for n, p in model.named_parameters()})
+    new = torch_to_flax(model.state_dict())
+    null = zero_gradient_biases(model)
+    grad_err = param_err = 0.0
+    for k, g in grads.items():
+        if k in null:
+            e = max(float(abs(g).max()), golden["grad_abs_sum"][k] / g.size)
+            check(e <= TRAIN_GOLDEN_NULL_GRAD_ATOL, f"train golden: gradient {k} (0 in exact arithmetic) is {e:.2e}")
+        else:
+            e = abs(float(g.sum(dtype="float64")) - golden["grad_sum"][k]) / golden["grad_abs_sum"][k]
+            check(e <= TRAIN_GOLDEN_GRAD_RTOL, f"train golden: gradient {k} sum off by {e:.2e} of its absolute sum")
+            grad_err = max(grad_err, e)
+        e = abs(float(new[k].sum(dtype="float64")) - golden["param_sum"][k]) / new[k].size
+        tol = TRAIN_GOLDEN_NULL_PARAM_ATOL if k in null else TRAIN_GOLDEN_PARAM_ATOL
+        check(e <= tol, f"train golden: parameter {k} sum off by {e:.2e} per element (tol {tol})")
+        if k not in null:
+            param_err = max(param_err, e)
+    return {"max_rel_err": rel, "grad_sum_err": grad_err, "param_sum_err_per_element": param_err,
+            "zero_gradient_biases": sorted(null)}
+
+
+def train_phase(dev, profile: bool = False) -> dict:
+    """The AugMix training path of the ``classifier`` configuration; see the
+    module docstring, phase 8."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from fav_tpu_torch.config import ModelParams
+    from fav_tpu_torch.data.cifar import index_iterator, synthetic_cifar10
+    from fav_tpu_torch.models.cnn import create_model, init_params
+    from fav_tpu_torch.models.train import (augmix_objective, augmix_train_step, augmix_views, create_train_state,
+                                            make_train_megastep)
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+    from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR
+
+    golden = json.loads((WEIGHTS_DIR / "train_step.golden.json").read_text())
+    g = check_train_golden(golden, dev)
+    phase("train", f"the JAX package's float32 AugMix step at widths {tuple(golden['widths'])}, batch "
+                   f"{golden['batch']}, its draws through K9a/K9b: loss, ce, js within "
+                   f"{', '.join(f'{v:.2e}' for v in g['max_rel_err'].values())} relative (tol {TRAIN_GOLDEN_RTOL}; "
+                   f"js also {TRAIN_GOLDEN_JS_ATOL} abs), gradient sums within "
+                   f"{g['grad_sum_err']:.2e} (tol {TRAIN_GOLDEN_GRAD_RTOL}), updated parameter sums within "
+                   f"{g['param_sum_err_per_element']:.2e} per element (tol {TRAIN_GOLDEN_PARAM_ATOL}); the biases "
+                   f"whose gradient is 0 in exact arithmetic ({', '.join(g['zero_gradient_biases'])}) within "
+                   f"{TRAIN_GOLDEN_NULL_GRAD_ATOL} and {TRAIN_GOLDEN_NULL_PARAM_ATOL}")
+
+    t = time.perf_counter()
+    ds = synthetic_cifar10()
+    data_s = time.perf_counter() - t
+    images_all = torch.from_numpy(ds.train_images).to(dev)
+    labels_all = torch.from_numpy(ds.train_labels).to(dev)
+    mp = ModelParams()
+    model = init_params(create_model(mp).to(dev), torch.Generator(device=dev).manual_seed(SEED))
+    state = create_train_state(model, TRAIN_LR)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    idx_it = index_iterator(ds.train_images.shape[0], TRAIN_BATCH, seed=SEED)
+    phase("train", f"classifier config: vgg widths {mp.widths}, dense {mp.dense_width}, dropout {mp.dropout_rate}, "
+                   f"{mp.compute_dtype}; {sum(p.numel() for p in model.parameters())} parameters; synthetic "
+                   f"draw 0 ({ds.train_images.shape[0]} train images) made in {data_s:.2f} s")
+
+    def batch(idx):
+        i = torch.from_numpy(idx).to(dev)
+        return images_all.index_select(0, i), labels_all.index_select(0, i)
+
+    losses = []
+    kern.reset_launch_counts()
+    torch.cuda.synchronize()
+    for i in range(TRAIN_WARMUP):
+        m = augmix_train_step(state, *batch(next(idx_it)), gen, TRAIN_JS_LAM)
+        losses.append({k: m[k].view(1) for k in ("loss", "ce", "js")})
+        if i == 0:
+            torch.cuda.synchronize()
+            first = kern.launch_counts()
+            want = {k: K9_LAUNCHES_PER_STEP.get(k, 0) for k in first}
+            check(first == want, f"train: launches in one step {first}, expected {want}")
+    mega = make_train_megastep(augmix=True, js_lam=TRAIN_JS_LAM, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(TRAIN_CHUNKS):
+        chunk = np.stack([next(idx_it) for _ in range(TRAIN_K)])
+        state, m = mega(state, images_all, labels_all, chunk, gen)
+        losses.append(m)
+    torch.cuda.synchronize()
+    timed = TRAIN_CHUNKS * TRAIN_K
+    step_ms = (time.perf_counter() - t) / timed * 1e3
+    counts = kern.launch_counts()
+    steps = TRAIN_WARMUP + timed
+    want = {k: K9_LAUNCHES_PER_STEP.get(k, 0) * steps for k in counts}
+    check(counts == want, f"train: launches over {steps} steps {counts}, expected {want}")
+    curve = {k: torch.cat([m[k] for m in losses]).cpu().numpy() for k in ("loss", "ce", "js")}
+    check(all(np.isfinite(v).all() for v in curve.values()), f"train: non-finite losses {curve}")
+    check(curve["loss"][-5:].mean() < curve["loss"][:5].mean(),
+          f"train: the loss does not fall: {curve['loss'].tolist()}")
+    img_s = TRAIN_BATCH / (step_ms / 1e3)
+    phase("train", f"{steps} steps at batch {TRAIN_BATCH} ({TRAIN_WARMUP} per-step warm-up, {TRAIN_CHUNKS} megastep "
+                   f"chunks of {TRAIN_K} timed): {step_ms:.3f} ms/step, {img_s:.0f} training images/s; launches "
+                   f"{counts} (first step {first})")
+    phase("train", f"step 1: loss {curve['loss'][0]:.4f} ce {curve['ce'][0]:.4f} js {curve['js'][0]:.4f}; step "
+                   f"{steps}: loss {curve['loss'][-1]:.4f} ce {curve['ce'][-1]:.4f} js {curve['js'][-1]:.4f}; mean of "
+                   f"the first 5 {curve['loss'][:5].mean():.4f}, of the last 5 {curve['loss'][-5:].mean():.4f}")
+
+    # where a step's time goes: CUDA events around the two views, the
+    # forward and backward, and the optimizer
+    x, y = batch(next(idx_it))
+    split = {"augmix": 0.0, "forward_backward": 0.0, "optimizer": 0.0}
+    for _ in range(TRAIN_BREAKDOWN_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        aug1, aug2 = augmix_views(gen, x)
+        ev[1].record()
+        loss, _ = augmix_objective(state.model, x, y, aug1, aug2, TRAIN_JS_LAM, gen)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[2].record()
+        state.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for key, (a, b) in zip(split, ((0, 1), (1, 2), (2, 3))):
+            split[key] += ev[a].elapsed_time(ev[b]) / TRAIN_BREAKDOWN_STEPS
+    total = sum(split.values())
+    phase("train", f"breakdown (CUDA events, mean of {TRAIN_BREAKDOWN_STEPS} steps): augmix x2 "
+                   f"{split['augmix']:.3f} ms ({split['augmix'] / total:.1%}), forward+backward "
+                   f"{split['forward_backward']:.3f} ms ({split['forward_backward'] / total:.1%}), optimizer "
+                   f"{split['optimizer']:.3f} ms ({split['optimizer'] / total:.1%})")
+
+    # the kernel route against the plain route from one state and generator
+    seed = SEED + 5
+    k_views = augmix_views(torch.Generator(device=dev).manual_seed(seed), x)
+    p_views = augmix_views(torch.Generator(device=dev).manual_seed(seed), x, plain=True)
+    check(all(torch.equal(a, b) for a, b in zip(k_views, p_views)), "train: views differ between the routes")
+    other = copy.deepcopy(state)
+    mk = augmix_train_step(state, x, y, torch.Generator(device=dev).manual_seed(seed), TRAIN_JS_LAM)
+    mp_ = augmix_train_step(other, x, y, torch.Generator(device=dev).manual_seed(seed), TRAIN_JS_LAM, plain=True)
+    loss_err = abs(float(mk["loss"]) - float(mp_["loss"])) / abs(float(mp_["loss"]))
+    with torch.no_grad():
+        param_err = max(float((a - b).abs().max()) for a, b in zip(state.model.parameters(), other.model.parameters()))
+    check(loss_err <= ROUTE_LOSS_RTOL and param_err <= ROUTE_PARAM_ATOL,
+          f"train: kernel vs plain route: loss {loss_err:.2e} relative, parameters {param_err:.2e}")
+    phase("train", f"kernel vs plain route from one generator: both views equal bit for bit; one step's loss "
+                   f"within {loss_err:.2e} relative (tol {ROUTE_LOSS_RTOL}), parameters within {param_err:.2e} "
+                   f"(tol {ROUTE_PARAM_ATOL})")
+    del other
+    if profile:
+        profile_step(lambda: augmix_train_step(state, x, y, gen, TRAIN_JS_LAM), step_ms, "one train step")
+    return {"counts": counts, "first_step_counts": first, "step_ms": step_ms, "img_per_s": img_s,
+            "split_ms": split, "loss_first": float(curve["loss"][0]), "loss_last": float(curve["loss"][-1]),
+            "ce": [float(curve["ce"][0]), float(curve["ce"][-1])],
+            "js": [float(curve["js"][0]), float(curve["js"][-1])],
+            "data_s": data_s, "golden": g, "route_loss_err": loss_err, "route_param_err": param_err}
 
 
 def monitor_phase(dev, profile: bool = False) -> dict:
@@ -519,8 +856,8 @@ def policy_phase(model, images, dev) -> dict:
     step_s = time.perf_counter() - t
     counts = kern.launch_counts()
     expected = {"gaussian_noise": 1, "shot_noise": 1, "impulse_noise": 1, "photometric": 2, "glass_resample": 1,
-                "elastic_warp": 1, "frame_stats": len(BENCH_CELLS), "corrupt_normalize": 0,
-                "philox_uniform": PHILOX_DRAWS_PER_MEGASTEP}
+                "elastic_warp": 1, "frame_stats": len(BENCH_CELLS), "corrupt_normalize": 0, "shear_rows": 0,
+                "shear_cols": 0, "philox_uniform": PHILOX_DRAWS_PER_MEGASTEP}
     check(counts == expected, f"policy: launch counts {counts}, expected {expected}")
     for (name, _), x, status, anomaly in zip(BENCH_CELLS, corrupted, rows["l1_status"], rows["l1_anomaly"]):
         p_status, p_anomaly = l1_rows(x, plain=True)
@@ -730,6 +1067,8 @@ def main(argv: list[str]) -> int:
     # K7 at the service's and the grid's shapes; K8 at the megastep's
     k7_report = check_k7(dev, gen, bound)
     k8_report = check_k8(x, bound)
+    # K9a and K9b at an AugMix view's chain batch
+    k9_report = check_k9(dev, gen, bound)
 
     # ── 4. the nano student against the JAX package's golden logits ──────
     model, meta = load_student("student_nano", device=dev)
@@ -757,7 +1096,7 @@ def main(argv: list[str]) -> int:
     torch.cuda.synchronize()
     counts = kern.launch_counts()
     expected = {"gaussian_noise": 1, "shot_noise": 1, "impulse_noise": 1, "photometric": 2, "glass_resample": 1,
-                "elastic_warp": 1, "frame_stats": 0, "corrupt_normalize": 0,
+                "elastic_warp": 1, "frame_stats": 0, "corrupt_normalize": 0, "shear_rows": 0, "shear_cols": 0,
                 "philox_uniform": PHILOX_DRAWS_PER_MEGASTEP}
     check(counts == expected, f"launch counts {counts}, expected {expected}")
     vals = out.cpu()
@@ -809,6 +1148,9 @@ def main(argv: list[str]) -> int:
     # ── 7. the grid's L1 pass into the policy replay ──────────────────────
     policy = policy_phase(model, images, dev)
 
+    # ── 8. the AugMix training path of the classifier configuration ──────
+    train = train_phase(dev, profile="--profile" in argv)
+
     # ── report ─────────────────────────────────────────────────────────────
     pallas = "fav_tpu/ops/corruptions_pallas.py"
     csrc = "fav_tpu_torch/ops/csrc"
@@ -857,11 +1199,18 @@ def main(argv: list[str]) -> int:
         "path_note": "no path of fav_tpu calls corrupt_normalize_pallas; held to its plain version only",
         "variants": k8_report,
     })
-    paths = {"megastep": counts, "monitor": monitor["counts"], "policy": policy["counts"]}
+    augment_pallas = "fav_tpu/ops/augment_pallas.py"
+    for name, replaces in (("shear_rows", f"{augment_pallas}:40"), ("shear_cols", f"{augment_pallas}:54")):
+        r = k9_report[name]
+        entries.append({"name": f"{r['kid']} {name}", "route": "cuda", "source": f"{csrc}/shear.cu",
+                        "replaces": replaces, "launches": train["counts"][name], **{k: r[k] for k in keys},
+                        "library_ms": r["library_ms"]})
+    paths = {"megastep": counts, "monitor": monitor["counts"], "policy": policy["counts"], "train": train["counts"]}
     kernel_keys = {"K1 gaussian_noise": "gaussian_noise", "K2 shot_noise": "shot_noise",
                    "K3 impulse_noise": "impulse_noise", "K4 photometric": "photometric",
                    "K5 glass_resample": "glass_resample", "K6 elastic_warp": "elastic_warp",
-                   "K7 frame_stats": "frame_stats", "K8 corrupt_normalize": "corrupt_normalize"}
+                   "K7 frame_stats": "frame_stats", "K8 corrupt_normalize": "corrupt_normalize",
+                   "K9a shear_rows": "shear_rows", "K9b shear_cols": "shear_cols"}
     for e in entries:
         e["launches_by_path"] = {path: c[kernel_keys[e["name"]]] for path, c in paths.items()}
     r = report["philox_uniform"]
@@ -872,7 +1221,8 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"kernels": entries, "helpers": helpers, "megastep_ms": step_ms, "img_per_s": img_s,
                       "family_ms": family_ms, "forward_ms": forward_ms,
                       "monitor": {k: v for k, v in monitor.items() if k != "counts"},
-                      "policy_step_ms": policy["step_ms"]}), flush=True)
+                      "policy_step_ms": policy["step_ms"],
+                      "train": {k: v for k, v in train.items() if k != "counts"}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -9,9 +9,12 @@ serves CPU tensors.
 Layout:
     fav_tpu_torch.config     ModelParams (own copy of fav_tpu.config's)
     fav_tpu_torch.device     resolve_device: cuda by default, cpu on request
-    fav_tpu_torch.ops        Philox draws, corruption transforms, CUDA kernels
-    fav_tpu_torch.models     FailureAwareCNN, MSP / anomaly scalars
-    fav_tpu_torch.utils      flax -> torch weights bridge
+    fav_tpu_torch.ops        Philox draws, corruption transforms, the signal
+                             analyzer, AugMix, CUDA kernels
+    fav_tpu_torch.models     FailureAwareCNN, MSP / anomaly scalars, training
+                             (CE and AugMix + JS, the megastep, pretrain CLI)
+    fav_tpu_torch.data       CIFAR-10 or its deterministic synthetic stand-in
+    fav_tpu_torch.utils      flax <-> torch weights and optax -> torch AdamW state
     fav_tpu_torch.pipeline   the detection megastep (corrupt -> CNN -> scalars)
 """
 

@@ -1,6 +1,7 @@
 """Wrappers of CUDA kernels K1-K6 and K8 and the Philox uniform helper, the
 router of all fifteen corruption families, and the launch-count registry
-of every kernel of the port (K7's wrapper is in ``ops/signal_cuda.py``).
+of every kernel of the port (K7's wrapper is in ``ops/signal_cuda.py``,
+K9a's and K9b's in ``ops/augment_cuda.py``).
 
 Counterpart of ``fav_tpu/ops/corruptions_pallas.py`` (``_grid_call`` :157,
 the wrappers :191-253, ``glass_blur_pallas`` :421,
@@ -30,8 +31,9 @@ noise, brightness, contrast and normalisation pass of an input pipeline; no
 path of ``fav_tpu`` calls it.
 
 The sources are ``csrc/corruptions.cu`` (K1-K4, K8 and the helper),
-``csrc/glass.cu`` (K5), ``csrc/elastic.cu`` (K6) and ``csrc/frame_stats.cu``
-(K7); ``ops/_build.py`` compiles them at the first launch.
+``csrc/glass.cu`` (K5), ``csrc/elastic.cu`` (K6), ``csrc/frame_stats.cu``
+(K7) and ``csrc/shear.cu`` (K9a, K9b); ``ops/_build.py`` compiles them at
+the first launch.
 """
 
 from __future__ import annotations
@@ -137,6 +139,10 @@ KERNELS = {
     # K8, replaces corruptions_pallas.py:_corrupt_normalize_kernel
     "corrupt_normalize": CudaKernel("corruptions", "fav_corrupt_normalize",
                                     [_P, _P, _I32, _I32, _U32, _U32, _F32, _F32, _F32, _F32, _F32, _P]),
+    # K9a and K9b, replace augment_pallas.py:_shear_rows_kernel and _shear_cols_kernel;
+    # wrappers in ops/augment_cuda.py
+    "shear_rows": CudaKernel("shear", "fav_shear_rows", [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]),
+    "shear_cols": CudaKernel("shear", "fav_shear_cols", [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]),
     # helper, no TPU counterpart: the Philox uniforms of ops/random.py on the card
     "philox_uniform": CudaKernel("corruptions", "fav_philox_uniform", [_P, _I64, _U32, _U32, _U32, _P]),
 }

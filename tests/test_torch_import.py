@@ -23,6 +23,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -141,6 +142,21 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         load_student("student_nano")
     with pytest.raises(RuntimeError):
         make_megastep(FailureAwareCNN(widths=(8,), dense_width=8))
+    # the training path: data or a generator on the CPU, or device="cpu", is asking for it
+    from fav_tpu_torch.data.cifar import synthetic_cifar10
+    from fav_tpu_torch.models import pretrain
+    from fav_tpu_torch.models.train import make_train_megastep, train_classifier
+    from fav_tpu_torch.ops.augment import augmix
+
+    with pytest.raises(RuntimeError):
+        train_classifier(FailureAwareCNN(widths=(8,), dense_width=8), synthetic_cifar10(16, 8), num_steps=1)
+    with pytest.raises(RuntimeError):
+        make_train_megastep(augmix=True)
+    with pytest.raises(RuntimeError):
+        augmix(torch.Generator(), np.zeros((2, 32, 32, 3), np.float32))
+    with pytest.raises(RuntimeError):
+        pretrain.main(["--steps", "1"])
+    assert augmix(torch.Generator(), torch.zeros(2, 32, 32, 3)).device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
@@ -187,7 +203,8 @@ def test_launchers_match_their_bindings():
     every library exports the error-string function the binding reads."""
     from fav_tpu_torch.ops import corruptions_cuda
 
-    assert {k.library for k in corruptions_cuda.KERNELS.values()} == {"corruptions", "glass", "elastic", "frame_stats"}
+    assert {k.library for k in corruptions_cuda.KERNELS.values()} == {"corruptions", "glass", "elastic", "frame_stats",
+                                                                      "shear"}
     for kernel in corruptions_cuda.KERNELS.values():
         source = (PACKAGE / "ops" / "csrc" / f"{kernel.library}.cu").read_text()
         extern = source[source.index('extern "C" {'):]
