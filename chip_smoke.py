@@ -3,8 +3,8 @@
 to its plain PyTorch version, run the fifteen-family detection megastep of
 ``bench.py``'s cells with the nano student, run the frame-analysis service
 on scripted camera streams and the grid's L1 pass into the policy replay,
-train the ``classifier`` configuration with AugMix for a few steps, and
-report.
+train the ``classifier`` configuration with AugMix for a few steps, run the
+packed A/B of glass and elastic, and report.
 
     python3 chip_smoke.py             # what the checks run
     python3 chip_smoke.py --profile   # adds torch.profiler tables of one megastep, one analyzer batch
@@ -28,7 +28,10 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                (corrupt-normalize) at (6144, 32, 32, 3), at sigma 0 and 0.18;
                K9a and K9b (the AugMix shear passes) at an AugMix view's
                chain batch (768, 32, 32, 3), m = 18 and 22, exact, beside
-               ``grid_sample`` computing the same shear;
+               ``grid_sample`` computing the same shear; K5p and K6p (the
+               lane-packed glass and elastic kernels) at (6144, 32, 32, 3)
+               against their plain versions and against K5 and K6, exact,
+               K6p at severities 1-5;
 4. golden   -- the nano student's bf16 logits on fixed images against the
                JAX package's, committed in ``weights/student_nano.golden.json``;
 5. megastep -- one megastep at batch 6144 over all fifteen cells with the
@@ -60,7 +63,16 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                the loss finite and falling; the views bit-equal between the
                kernel and the plain route, one step of each within a stated
                tolerance; ms per step, images/s and the split into
-               augmentation, forward+backward and optimizer (CUDA events).
+               augmentation, forward+backward and optimizer (CUDA events);
+9. packed   -- ``fav_tpu_torch.tools.ab_packed_kernels.run_ab`` at batch
+               6144: the kernel arms (glass and elastic at severities 3 and
+               5, packed and unpacked, interleaved, median ms), the packed
+               and unpacked outputs of each equal bit for bit; the megastep
+               arms (``make_megastep(packed=True)`` and ``(packed=False)``),
+               one megastep of each from equal generators with the counts
+               reset just before (K5p and K6p once in the packed one, K5
+               and K6 once in the unpacked one), outputs within the
+               megastep tolerance, ms per megastep and img/s.
 
 The line before the last is one JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -145,13 +157,23 @@ def elastic_live_ops(ys, xs, m: int, c: int) -> float:
 
 # Philox helper launches in one megastep: motion 1, snow 2, frost 5, fog 5, elastic 2.
 PHILOX_DRAWS_PER_MEGASTEP = 15
+# Launches of one megastep over the 15 cells: K1-K3, K5 and K6 once, K4
+# twice (brightness and contrast), the helper 15 times.
+MEGASTEP_LAUNCHES = {"gaussian_noise": 1, "shot_noise": 1, "impulse_noise": 1, "photometric": 2,
+                     "glass_resample": 1, "glass_resample_packed": 0, "elastic_warp": 1, "elastic_warp_packed": 0,
+                     "frame_stats": 0, "corrupt_normalize": 0, "shear_rows": 0, "shear_cols": 0,
+                     "philox_uniform": PHILOX_DRAWS_PER_MEGASTEP}
+# The packed megastep: K5p and K6p in place of K5 and K6.
+PACKED_MEGASTEP_LAUNCHES = {**MEGASTEP_LAUNCHES, "glass_resample": 0, "glass_resample_packed": 1,
+                            "elastic_warp": 0, "elastic_warp_packed": 1}
 
 # Tolerances of kernel against plain version, on the same inputs on the card.
 K1_TOL = 1e-5  # logf/cosf/sqrtf ulps between the kernel's and PyTorch's builds
 K4_CONTRAST_TOL = 1e-6  # the per-image mean is summed in another order
 K2_MAX_TIE_FRACTION = 1e-4  # counts may differ only where u sits on a CDF partial sum
 # K5 (pure selection) and K6 (the plain version's operations in its order,
-# no contraction) are held to their plain versions exactly; so is the
+# no contraction) are held to their plain versions exactly; so are K5p and
+# K6p, to theirs and to K5 and K6 (the same draws, taps and order), and the
 # Philox helper to uniform01, word for word.
 K5_K6_TOL = 0.0
 # Megastep through the kernels against the plain versions: the corrupted
@@ -855,9 +877,7 @@ def policy_phase(model, images, dev) -> dict:
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t
     counts = kern.launch_counts()
-    expected = {"gaussian_noise": 1, "shot_noise": 1, "impulse_noise": 1, "photometric": 2, "glass_resample": 1,
-                "elastic_warp": 1, "frame_stats": len(BENCH_CELLS), "corrupt_normalize": 0, "shear_rows": 0,
-                "shear_cols": 0, "philox_uniform": PHILOX_DRAWS_PER_MEGASTEP}
+    expected = {**MEGASTEP_LAUNCHES, "frame_stats": len(BENCH_CELLS)}
     check(counts == expected, f"policy: launch counts {counts}, expected {expected}")
     for (name, _), x, status, anomaly in zip(BENCH_CELLS, corrupted, rows["l1_status"], rows["l1_anomaly"]):
         p_status, p_anomaly = l1_rows(x, plain=True)
@@ -879,6 +899,31 @@ def policy_phase(model, images, dev) -> dict:
                         f"blocked {r['policy_share_vision_blocked']:.4f}, to BLOCKED {r['time_to_blocked_s']:.3f} s, "
                         f"final {r['final_reliability']:.6f}, allowed-wrong {r['allowed_wrong_share']:.4f}")
     return {"counts": counts, "step_ms": step_s * 1e3, "summaries": summaries}
+
+
+def packed_phase(dev) -> dict:
+    """The packed A/B through ``run_ab``; see the module docstring, phase 9."""
+    from fav_tpu_torch.pipeline import BATCH
+    from fav_tpu_torch.tools.ab_packed_kernels import run_ab
+
+    ab = run_ab(batch=BATCH, iters=ITERS, megastep=True, device=dev, log=lambda msg: phase("packed", msg))
+    for family, r in ab["packed_equals_unpacked"].items():
+        check(r["equal"], f"packed: {family}: the packed arm's batch differs from the unpacked arm's by "
+                          f"{r['max_abs_diff']}")
+    mega = ab["ab_packed"]
+    for arm, want in (("packed", PACKED_MEGASTEP_LAUNCHES), ("unpacked", MEGASTEP_LAUNCHES)):
+        check(mega[arm]["launches"] == want, f"packed: {arm} megastep launches {mega[arm]['launches']}, "
+                                             f"expected {want}")
+    check(mega["max_abs_diff"] <= MEGASTEP_TOL, f"packed: megastep arms {mega['packed']['out']} vs "
+                                                f"{mega['unpacked']['out']}")
+    phase("packed", f"kernel arms at batch {BATCH}, median of {ITERS} interleaved (CUDA events): "
+                    + ", ".join(f"{k} {v:.4f} ms" for k, v in ab["median_ms"].items())
+                    + "; packed and unpacked batches equal bit for bit in every family")
+    phase("packed", f"megastep arms: packed {mega['packed']['ms_per_megastep']:.3f} ms "
+                    f"({mega['packed']['img_per_sec']:.0f} img/s), unpacked {mega['unpacked']['ms_per_megastep']:.3f} "
+                    f"ms ({mega['unpacked']['img_per_sec']:.0f} img/s); outputs within {mega['max_abs_diff']:.3e} "
+                    f"(tol {MEGASTEP_TOL}); K5p/K6p once in the packed megastep, K5/K6 once in the unpacked one")
+    return ab
 
 
 def main(argv: list[str]) -> int:
@@ -1026,19 +1071,48 @@ def main(argv: list[str]) -> int:
                      f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}: "
                      f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} Gop); library: none (no single PyTorch "
                      f"call draws and applies the cascade)")
-    del got, want
+
+    # K5p: the same cascade on groups of G = packed_group(B, W) images, held
+    # to its plain version and to K5; the same bytes and operations as K5
+    g5 = plain.packed_group(b, w)
+    got_p = kern.glass_resample(seed, x, m, iters, packed=True)
+    want_p = plain.glass_resample_packed_plain(seed, x, m, iters)
+    torch.cuda.synchronize()
+    err = float((got_p - want_p).abs().max())
+    err_k5 = float((got_p - got).abs().max())
+    check(got_p.shape == x.shape and max(err, err_k5) <= K5_K6_TOL,
+          f"glass_resample_packed: max diff {err} from its plain version, {err_k5} from K5, expected exact")
+    ms = time_ms(lambda: kern.glass_resample(seed, x, m, iters, packed=True), reps=20)
+    plain_ms = time_ms(lambda: plain.glass_resample_packed_plain(seed, x, m, iters), reps=3, warmup=1)
+    report["glass_resample_packed"] = {"kid": "K5p", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                       "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
+    phase("kernels", f"K5p glass_resample_packed (G={g5}): max|kernel-plain| {err:.3e}, max|K5p-K5| "
+                     f"{err_k5:.3e} (exact); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                     f"({by}, as K5); library: none")
+    del got, want, got_p, want_p
 
     # K6: the elastic warp on the fields of a seed, exact at every severity
     # (m = 2 .. 6), timed at severity 3 (alpha 3.5, m = 4)
+    # K6p on groups of G = packed_group(B, W + 2(m + 1)) images (3 at
+    # severities 1-3, 2 at 4-5), held to its plain version and to K6
+    packed_err = {}
     for level in range(1, len(plain.ELASTIC_SEV) + 1):
         fy, fx = plain.elastic_fields(SEED + 13, x, level, uniform=kern.uniform)
         got = kern.elastic_warp(x, fy, fx, level)
         diff = float((got - plain.elastic_from_fields(x, fy, fx, level)).abs().max())
         check(got.shape == x.shape and diff <= K5_K6_TOL,
               f"elastic_warp severity {level}: max diff {diff}, expected exact")
+        g6 = plain.packed_group(b, w + 2 * (plain.elastic_margin(level) + 1))
+        got_p = kern.elastic_warp(x, fy, fx, level, packed=True)
+        diff_p = float((got_p - plain.elastic_from_fields_packed(x, fy, fx, level, g6)).abs().max())
+        diff_k6 = float((got_p - got).abs().max())
+        check(got_p.shape == x.shape and max(diff_p, diff_k6) <= K5_K6_TOL,
+              f"elastic_warp_packed severity {level} (G={g6}): max diff {diff_p} from its plain version, "
+              f"{diff_k6} from K6, expected exact")
+        packed_err[level] = (g6, diff_p, diff_k6)
         if level == sev:
             ys, xs, err = fy, fx, diff
-        del got, fy, fx
+        del got, got_p, fy, fx
     em = plain.elastic_margin(sev)
     got = kern.elastic_warp(x, ys, xs, sev)
     ms = time_ms(lambda: kern.elastic_warp(x, ys, xs, sev), reps=20)
@@ -1062,6 +1136,15 @@ def main(argv: list[str]) -> int:
                      f"1-5); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}: "
                      f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} Gop of live taps); grid_sample "
                      f"{library_ms:.4f} ms (max|grid_sample-kernel| {lib_err:.3e}, another order of operations)")
+    g6, err, err_k6 = packed_err[sev]
+    ms = time_ms(lambda: kern.elastic_warp(x, ys, xs, sev, packed=True), reps=20)
+    plain_ms = time_ms(lambda: plain.elastic_from_fields_packed(x, ys, xs, sev, g6), reps=3, warmup=1)
+    report["elastic_warp_packed"] = {"kid": "K6p", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+    phase("kernels", f"K6p elastic_warp_packed (m={em}, G={g6}): max|kernel-plain| {err:.3e}, max|K6p-K6| "
+                     f"{err_k6:.3e} (exact, and at severities 1-5: G "
+                     f"{'/'.join(str(v[0]) for v in packed_err.values())}); kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}, as K6); grid_sample {library_ms:.4f} ms")
     del got, ys, xs, x_nchw, grid
 
     # K7 at the service's and the grid's shapes; K8 at the megastep's
@@ -1095,10 +1178,7 @@ def main(argv: list[str]) -> int:
     out = megastep(images, torch.Generator().manual_seed(SEED))
     torch.cuda.synchronize()
     counts = kern.launch_counts()
-    expected = {"gaussian_noise": 1, "shot_noise": 1, "impulse_noise": 1, "photometric": 2, "glass_resample": 1,
-                "elastic_warp": 1, "frame_stats": 0, "corrupt_normalize": 0, "shear_rows": 0, "shear_cols": 0,
-                "philox_uniform": PHILOX_DRAWS_PER_MEGASTEP}
-    check(counts == expected, f"launch counts {counts}, expected {expected}")
+    check(counts == MEGASTEP_LAUNCHES, f"launch counts {counts}, expected {MEGASTEP_LAUNCHES}")
     vals = out.cpu()
     check(vals.shape == (3,) and bool(torch.isfinite(vals).all()), f"megastep output {vals}")
     check(bool(((vals >= 0) & (vals <= 1)).all()), f"megastep output outside [0, 1]: {vals}")
@@ -1151,6 +1231,10 @@ def main(argv: list[str]) -> int:
     # ── 8. the AugMix training path of the classifier configuration ──────
     train = train_phase(dev, profile="--profile" in argv)
 
+    # ── 9. the packed A/B: kernel arms and megastep arms ──────────────────
+    ab = packed_phase(dev)
+    packed_counts = ab["ab_packed"]["packed"]["launches"]
+
     # ── report ─────────────────────────────────────────────────────────────
     pallas = "fav_tpu/ops/corruptions_pallas.py"
     csrc = "fav_tpu_torch/ops/csrc"
@@ -1176,11 +1260,15 @@ def main(argv: list[str]) -> int:
         "variants": {k: {f: report[k][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
                      for k in ("brightness", "contrast")},
     })
-    for name, src, replaces in (("glass_resample", "glass.cu", f"{pallas}:295"),
-                                ("elastic_warp", "elastic.cu", f"{pallas}:441")):
+    for name, src, replaces, launches in (
+        ("glass_resample", "glass.cu", f"{pallas}:295", counts["glass_resample"]),
+        ("glass_resample_packed", "glass.cu", f"{pallas}:319", packed_counts["glass_resample_packed"]),
+        ("elastic_warp", "elastic.cu", f"{pallas}:441", counts["elastic_warp"]),
+        ("elastic_warp_packed", "elastic.cu", f"{pallas}:478", packed_counts["elastic_warp_packed"]),
+    ):
         r = report[name]
         entries.append({"name": f"{r['kid']} {name}", "route": "cuda", "source": f"{csrc}/{src}",
-                        "replaces": replaces, "launches": counts[name], **{k: r[k] for k in keys},
+                        "replaces": replaces, "launches": launches, **{k: r[k] for k in keys},
                         "library_ms": r["library_ms"]})
     signal_pallas = "fav_tpu/ops/signal_pallas.py"
     k7_top = k7_report["32x240x320"]
@@ -1205,10 +1293,12 @@ def main(argv: list[str]) -> int:
         entries.append({"name": f"{r['kid']} {name}", "route": "cuda", "source": f"{csrc}/shear.cu",
                         "replaces": replaces, "launches": train["counts"][name], **{k: r[k] for k in keys},
                         "library_ms": r["library_ms"]})
-    paths = {"megastep": counts, "monitor": monitor["counts"], "policy": policy["counts"], "train": train["counts"]}
+    paths = {"megastep": counts, "monitor": monitor["counts"], "policy": policy["counts"], "train": train["counts"],
+             "packed": packed_counts}
     kernel_keys = {"K1 gaussian_noise": "gaussian_noise", "K2 shot_noise": "shot_noise",
                    "K3 impulse_noise": "impulse_noise", "K4 photometric": "photometric",
-                   "K5 glass_resample": "glass_resample", "K6 elastic_warp": "elastic_warp",
+                   "K5 glass_resample": "glass_resample", "K5p glass_resample_packed": "glass_resample_packed",
+                   "K6 elastic_warp": "elastic_warp", "K6p elastic_warp_packed": "elastic_warp_packed",
                    "K7 frame_stats": "frame_stats", "K8 corrupt_normalize": "corrupt_normalize",
                    "K9a shear_rows": "shear_rows", "K9b shear_cols": "shear_cols"}
     for e in entries:
@@ -1222,7 +1312,11 @@ def main(argv: list[str]) -> int:
                       "family_ms": family_ms, "forward_ms": forward_ms,
                       "monitor": {k: v for k, v in monitor.items() if k != "counts"},
                       "policy_step_ms": policy["step_ms"],
-                      "train": {k: v for k, v in train.items() if k != "counts"}}), flush=True)
+                      "train": {k: v for k, v in train.items() if k != "counts"},
+                      "packed_ab": {"median_ms": ab["median_ms"],
+                                    "megastep": {arm: {k: ab["ab_packed"][arm][k]
+                                                       for k in ("ms_per_megastep", "img_per_sec")}
+                                                 for arm in ("packed", "unpacked")}}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -91,12 +91,15 @@ __all__ = [
     "pixelate",
     "quality_scale",
     "jpeg_compression",
+    "packed_group",
     "glass_codes",
     "glass_resample_from_uniforms",
+    "glass_resample_packed_from_uniforms",
     "glass_blur_with",
     "elastic_margin",
     "elastic_fields_from_uniforms",
     "elastic_from_fields",
+    "elastic_from_fields_packed",
     "gaussian_noise_plain",
     "shot_noise_plain",
     "impulse_noise_plain",
@@ -104,6 +107,7 @@ __all__ = [
     "contrast_plain",
     "corrupt_normalize_plain",
     "glass_resample_plain",
+    "glass_resample_packed_plain",
     "glass_blur_plain",
     "motion_blur_plain",
     "snow_plain",
@@ -531,6 +535,60 @@ def glass_resample_from_uniforms(x: torch.Tensor, us, m: int) -> torch.Tensor:
     return x
 
 
+def packed_group(batch: int, seg: int) -> int:
+    """G, the images the packed kernels put side by side along a row:
+    ``max(1, 128 // seg)``, lowered until it divides the batch
+    (``corruptions_pallas.py:368-370`` with ``seg = W``, ``:545-547`` with
+    ``seg = wp = W + 2(m + 1)``). G = 1 takes the unpacked kernel."""
+    g = max(1, 128 // seg)
+    while g > 1 and batch % g:
+        g -= 1
+    return g
+
+
+def _pack(a: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, H, S, ...) -> (B/G, H, G S, ...): G images side by side along S."""
+    b, h, seg = a.shape[:3]
+    rest = a.shape[3:]
+    return a.reshape(b // g, g, h, seg, *rest).transpose(1, 2).reshape(b // g, h, g * seg, *rest)
+
+
+def _unpack(a: torch.Tensor, g: int, seg: int) -> torch.Tensor:
+    """The inverse of ``_pack``: (B/G, H, G S, ...) -> (B, H, S, ...)."""
+    bg, h = a.shape[:2]
+    rest = a.shape[3:]
+    return a.reshape(bg, h, g, seg, *rest).transpose(1, 2).reshape(bg * g, h, seg, *rest)
+
+
+def glass_resample_packed_from_uniforms(x: torch.Tensor, us, m: int, g: int) -> torch.Tensor:
+    """The lane-packed cascade of ``_glass_kernel_packed``
+    (``corruptions_pallas.py:319-356``) on NHWC ``x``, given the uniforms of
+    ``glass_resample_from_uniforms``: G images side by side along W, the
+    row pass as unpacked, the column pass with the offset clipped per lane,
+    ``d_eff = clip(code - m, -j, W - 1 - j)`` for lane-local column j, then
+    a select over circular rolls of the packed row. The clip keeps every
+    selected lane inside its own image, so the result equals the unpacked
+    cascade's."""
+    b, h, w, c = x.shape
+    xp = _pack(x, g)
+    rows = torch.arange(h, device=x.device).view(1, h, 1)
+    col = (torch.arange(g * w, device=x.device) % w).view(1, 1, g * w)
+    for a, u in enumerate(us):
+        d = glass_codes(_pack(u, g), m).to(torch.int64) - m
+        if a % 2 == 0:
+            src = torch.clamp(rows + d, 0, h - 1)
+            xp = torch.gather(xp, 1, src[..., None].expand(xp.shape))
+        else:
+            d_eff = torch.clamp(d, -col, w - 1 - col)
+            acc = torch.zeros_like(xp)
+            for off in range(-m, m + 1):
+                # rolled[..., j, :] = xp[..., j + off (mod G W), :]
+                rolled = torch.roll(xp, -off, dims=2)
+                acc = torch.where((d_eff == off)[..., None], rolled, acc)
+            xp = acc
+    return _unpack(xp, g, w)
+
+
 def glass_blur_with(x: torch.Tensor, severity: int, resample) -> torch.Tensor:
     """``clip(blur(resample(blur(x), m, iters)))`` (``glass_blur_pallas``,
     ``corruptions_pallas.py:421-435``), the blurs as band products."""
@@ -590,6 +648,43 @@ def elastic_from_fields(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, sev
     return acc
 
 
+def elastic_from_fields_packed(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, severity: int,
+                               g: int) -> torch.Tensor:
+    """The lane-packed warp of ``_elastic_kernel_packed``
+    (``corruptions_pallas.py:478-503``, its set-up :545-576) on NHWC ``x``:
+    each image edge-padded by p = m + 1 to wp = W + 2p columns, G padded
+    images side by side along a row, the fields padded with zeros to wp.
+    Column window ``ox = jj - m`` is the packed image rolled by jj + 1 (for
+    an output column t <= W - 1 the source t + jj + 1 stays in its own
+    segment), row window ``oy = ii - m`` the padded rows ii + 1 .. ii + H;
+    the taps sum in ``elastic_from_fields``'s order and the pad lanes are
+    dropped, so the result equals it bit for bit."""
+    m = elastic_margin(severity)
+    p = m + 1
+    n = 2 * m + 2
+    b, h, w, c = x.shape
+    wp = w + 2 * p
+    rows = torch.clamp(torch.arange(-p, h + p, device=x.device), 0, h - 1)
+    cols = torch.clamp(torch.arange(-p, w + p, device=x.device), 0, w - 1)
+    xpad = _pack(x[:, rows][:, :, cols], g)  # (B/G, hp, G wp, C)
+    dy = ys - torch.arange(h, dtype=torch.float32, device=x.device).view(1, h, 1)
+    dx = xs - torch.arange(w, dtype=torch.float32, device=x.device).view(1, 1, w)
+    dyp = _pack(torch.nn.functional.pad(dy, (0, 2 * p)), g)[..., None]  # (B/G, H, G wp, 1)
+    dxp = _pack(torch.nn.functional.pad(dx, (0, 2 * p)), g)[..., None]
+    windows = [torch.roll(xpad, -(jj + 1), dims=2) for jj in range(n)]
+    wxs = [torch.clamp_min(1.0 - torch.abs(dxp - float(jj - m)), 0.0) for jj in range(n)]
+    acc = None
+    for ii in range(n):
+        wy = torch.clamp_min(1.0 - torch.abs(dyp - float(ii - m)), 0.0)
+        inner = None
+        for wx, window in zip(wxs, windows):
+            term = wx * window[:, ii + 1 : ii + 1 + h]
+            inner = term if inner is None else inner + term
+        term = wy * inner
+        acc = term if acc is None else acc + term
+    return _unpack(acc, g, wp)[:, :, :w]
+
+
 # ── plain versions: Philox draws, then the transform ──────────────────────
 
 def gaussian_noise_plain(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
@@ -636,8 +731,19 @@ def glass_resample_plain(seed: int, x: torch.Tensor, m: int, iters: int) -> torc
     return glass_resample_from_uniforms(x, us, m)
 
 
-def glass_blur_plain(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
-    return glass_blur_with(x, severity, lambda y, m, iters: glass_resample_plain(seed, y, m, iters))
+def glass_resample_packed_plain(seed: int, x: torch.Tensor, m: int, iters: int) -> torch.Tensor:
+    """Plain K5p: K5's draws, then ``glass_resample_packed_from_uniforms``
+    with G = ``packed_group(B, W)``."""
+    b, h, w, _ = x.shape
+    us = [uniform_field(seed, (b, h, w), p, x.device) for p in range(2 * iters)]
+    return glass_resample_packed_from_uniforms(x, us, m, packed_group(b, w))
+
+
+def glass_blur_plain(seed: int, x: torch.Tensor, severity: int = 3, packed: bool = False) -> torch.Tensor:
+    """``packed`` takes the packed cascade where G > 1, as ``glass_blur_pallas``."""
+    b, _, w, _ = x.shape
+    resample = glass_resample_packed_plain if packed and packed_group(b, w) > 1 else glass_resample_plain
+    return glass_blur_with(x, severity, lambda y, m, iters: resample(seed, y, m, iters))
 
 
 def motion_blur_plain(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field) -> torch.Tensor:
@@ -675,8 +781,12 @@ def elastic_fields(seed: int, x: torch.Tensor, severity: int = 3, uniform=unifor
                                         uniform(seed, (b, h, w, 1), 1, x.device), severity)
 
 
-def elastic_transform_plain(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def elastic_transform_plain(seed: int, x: torch.Tensor, severity: int = 3, packed: bool = False) -> torch.Tensor:
+    """``packed`` takes the packed warp where G > 1, as ``elastic_transform_pallas``."""
     ys, xs = elastic_fields(seed, x, severity)
+    g = packed_group(x.shape[0], x.shape[2] + 2 * (elastic_margin(severity) + 1)) if packed else 1
+    if g > 1:
+        return elastic_from_fields_packed(x, ys, xs, severity, g)
     return elastic_from_fields(x, ys, xs, severity)
 
 

@@ -1,4 +1,4 @@
-"""Wrappers of CUDA kernels K1-K6 and K8 and the Philox uniform helper, the
+"""Wrappers of CUDA kernels K1-K6, K5p, K6p and K8 and the Philox uniform helper, the
 router of all fifteen corruption families, and the launch-count registry
 of every kernel of the port (K7's wrapper is in ``ops/signal_cuda.py``,
 K9a's and K9b's in ``ops/augment_cuda.py``).
@@ -13,6 +13,10 @@ over float32 batch-first images (NHWC at the main path), routed as
 * gaussian, shot and impulse noise, brightness and contrast: K1-K4;
 * glass blur: band-product blur, K5's resample cascade, blur and clip;
 * elastic transform: fields from Philox uniforms by band products, then K6;
+* with ``packed=True`` (``glass_blur_pallas`` and ``elastic_transform_pallas``'s
+  ``packed``, off by default as there), glass and elastic take the
+  lane-packed kernels K5p and K6p wherever ``packed_group`` gives G > 1,
+  and K5 and K6 otherwise, as the TPU route does;
 * defocus, motion and zoom blur, snow, frost, fog, pixelate and JPEG: the
   band-matrix products of ``ops/corruptions.py`` (cuBLAS on the card), the
   random fields of motion, snow, frost and fog drawn on the card by the
@@ -31,7 +35,7 @@ noise, brightness, contrast and normalisation pass of an input pipeline; no
 path of ``fav_tpu`` calls it.
 
 The sources are ``csrc/corruptions.cu`` (K1-K4, K8 and the helper),
-``csrc/glass.cu`` (K5), ``csrc/elastic.cu`` (K6), ``csrc/frame_stats.cu``
+``csrc/glass.cu`` (K5, K5p), ``csrc/elastic.cu`` (K6, K6p), ``csrc/frame_stats.cu``
 (K7) and ``csrc/shear.cu`` (K9a, K9b); ``ops/_build.py`` compiles them at
 the first launch.
 """
@@ -51,6 +55,7 @@ __all__ = [
     "KERNELS",
     "PHOTOMETRIC_MAX_D",
     "SHARED_MEMORY_LIMIT",
+    "OPT_IN_SHARED_MEMORY_LIMIT",
     "launch_counts",
     "reset_launch_counts",
     "uniform",
@@ -79,6 +84,9 @@ PHOTOMETRIC_MAX_D = 11 * 1024
 # K5 and K6 hold one image per block in dynamic shared memory, within the
 # same 48 KB.
 SHARED_MEMORY_LIMIT = 48 * 1024
+# K5p and K6p hold a group of G images per block; their launchers opt in to
+# more than 48 KB, up to what a Hopper block can have.
+OPT_IN_SHARED_MEMORY_LIMIT = 227 * 1024
 
 
 class CudaKernel:
@@ -131,9 +139,15 @@ KERNELS = {
     # K5, replaces _glass_kernel
     "glass_resample": CudaKernel("glass", "fav_glass_resample",
                                  [_P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _U32, _U32, _P]),
+    # K5p, replaces _glass_kernel_packed
+    "glass_resample_packed": CudaKernel("glass", "fav_glass_resample_packed",
+                                        [_P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _U32, _U32, _P]),
     # K6, replaces _elastic_kernel
     "elastic_warp": CudaKernel("elastic", "fav_elastic_warp",
                                [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]),
+    # K6p, replaces _elastic_kernel_packed
+    "elastic_warp_packed": CudaKernel("elastic", "fav_elastic_warp_packed",
+                                      [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P]),
     # K7, replaces signal_pallas.py:_frame_stats_kernel; wrapper in ops/signal_cuda.py
     "frame_stats": CudaKernel("frame_stats", "fav_frame_stats", [_P, _P, _P, _P, _P, _I32, _I32, _I32, _P]),
     # K8, replaces corruptions_pallas.py:_corrupt_normalize_kernel
@@ -282,34 +296,52 @@ def _on_cpu_nhwc(x: torch.Tensor, name: str) -> bool:
     return cpu
 
 
-def glass_resample(seed: int, x: torch.Tensor, m: int, iters: int) -> torch.Tensor:
+def _shared_memory(name: str, need: int, limit: int, what: str) -> None:
+    if need > limit:
+        raise ValueError(f"{name}: {what} needs {need} bytes of shared memory (limit {limit})")
+
+
+def glass_resample(seed: int, x: torch.Tensor, m: int, iters: int, packed: bool = False) -> torch.Tensor:
     """K5: ``iters`` rounds of the row then column random resample of NHWC
-    ``x``, offsets in [-m, m] from Philox draws 0 .. 2 iters - 1."""
-    if _on_cpu_nhwc(x, "glass_resample"):
-        return plain.glass_resample_plain(seed, x, m, iters)
-    b, h, w, c = x.shape
-    passes = 2 * int(iters)
-    smem = 2 * h * w * c * 4 + passes * h * w
-    if smem > SHARED_MEMORY_LIMIT:
-        raise ValueError(f"glass_resample: a {h}x{w}x{c} image needs {smem} bytes of shared memory "
-                         f"(limit {SHARED_MEMORY_LIMIT})")
-    if not 0 <= int(m) <= 127:  # the kernel keeps each code, 0 .. 2m, in a byte
+    ``x``, offsets in [-m, m] from Philox draws 0 .. 2 iters - 1. With
+    ``packed`` and G = ``packed_group(B, W)`` > 1, K5p on groups of G images
+    (the same draws, the same result)."""
+    cpu = _on_cpu_nhwc(x, "glass_resample")
+    if not 0 <= int(m) <= 127:  # the kernels keep each code, 0 .. 2m, in a byte
         raise ValueError(f"glass_resample: offset bound m={m} outside 0..127")
+    b, h, w, c = x.shape
+    g = plain.packed_group(b, w) if packed else 1
+    if cpu:
+        if g > 1:
+            return plain.glass_resample_packed_plain(seed, x, m, iters)
+        return plain.glass_resample_plain(seed, x, m, iters)
+    passes = 2 * int(iters)
     out = torch.empty_like(x)
+    if g > 1:
+        _shared_memory("glass_resample", g * (2 * h * w * c * 4 + passes * h * w), OPT_IN_SHARED_MEMORY_LIMIT,
+                       f"a group of {g} {h}x{w}x{c} images")
+        KERNELS["glass_resample_packed"].launch(x.device, x.data_ptr(), out.data_ptr(), b, g, h, w, c, int(m),
+                                                passes, *seed_key(seed))
+        return out
+    _shared_memory("glass_resample", 2 * h * w * c * 4 + passes * h * w, SHARED_MEMORY_LIMIT,
+                   f"a {h}x{w}x{c} image")
     KERNELS["glass_resample"].launch(x.device, x.data_ptr(), out.data_ptr(), b, h, w, c, int(m), passes,
                                      *seed_key(seed))
     return out
 
 
-def glass_blur(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
-    """Band-product blur, K5, blur and clip (``glass_blur_pallas``)."""
+def glass_blur(seed: int, x: torch.Tensor, severity: int = 3, packed: bool = False) -> torch.Tensor:
+    """Band-product blur, K5 (K5p with ``packed``), blur and clip (``glass_blur_pallas``)."""
     _on_cpu_nhwc(x, "glass_blur")
-    return plain.glass_blur_with(x, severity, lambda y, m, iters: glass_resample(seed, y, m, iters))
+    return plain.glass_blur_with(x, severity, lambda y, m, iters: glass_resample(seed, y, m, iters, packed))
 
 
-def elastic_warp(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def elastic_warp(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, severity: int = 3,
+                 packed: bool = False) -> torch.Tensor:
     """K6: the tent-sum bilinear warp of NHWC ``x`` to the clamped sample
-    coordinates ``(ys, xs)``, each (B, H, W)."""
+    coordinates ``(ys, xs)``, each (B, H, W). With ``packed`` and G =
+    ``packed_group(B, W + 2(m + 1))`` > 1, K6p on groups of G images (the
+    same result)."""
     cpu = _on_cpu_nhwc(x, "elastic_warp")
     b, h, w, c = x.shape
     for name, f in (("ys", ys), ("xs", xs)):
@@ -318,22 +350,30 @@ def elastic_warp(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, severity: 
         if f.device != x.device or not f.is_contiguous():
             raise ValueError(f"elastic_warp: {name} must be contiguous on {x.device}")
     m = plain.elastic_margin(severity)
+    p = m + 1
+    g = plain.packed_group(b, w + 2 * p) if packed else 1
     if cpu:
+        if g > 1:
+            return plain.elastic_from_fields_packed(x, ys, xs, severity, g)
         return plain.elastic_from_fields(x, ys, xs, severity)
-    if h * w * c * 4 > SHARED_MEMORY_LIMIT:
-        raise ValueError(f"elastic_warp: a {h}x{w}x{c} image needs {h * w * c * 4} bytes of shared memory "
-                         f"(limit {SHARED_MEMORY_LIMIT})")
     out = torch.empty_like(x)
+    if g > 1:
+        _shared_memory("elastic_warp", (h + 2 * p) * g * (w + 2 * p) * c * 4, OPT_IN_SHARED_MEMORY_LIMIT,
+                       f"the padded tile of {g} {h}x{w}x{c} images")
+        KERNELS["elastic_warp_packed"].launch(x.device, x.data_ptr(), ys.data_ptr(), xs.data_ptr(), out.data_ptr(),
+                                              b, g, h, w, c, m)
+        return out
+    _shared_memory("elastic_warp", h * w * c * 4, SHARED_MEMORY_LIMIT, f"a {h}x{w}x{c} image")
     KERNELS["elastic_warp"].launch(x.device, x.data_ptr(), ys.data_ptr(), xs.data_ptr(), out.data_ptr(),
                                    b, h, w, c, m)
     return out
 
 
-def elastic_transform(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
-    """Fields from Philox draws 0 and 1 (``ops/corruptions.py``), then K6."""
+def elastic_transform(seed: int, x: torch.Tensor, severity: int = 3, packed: bool = False) -> torch.Tensor:
+    """Fields from Philox draws 0 and 1 (``ops/corruptions.py``), then K6 (K6p with ``packed``)."""
     _on_cpu_nhwc(x, "elastic_transform")
     ys, xs = plain.elastic_fields(seed, x, severity, uniform=uniform)
-    return elastic_warp(x, ys, xs, severity)
+    return elastic_warp(x, ys, xs, severity, packed)
 
 
 def _band_family(name: str, fn):
@@ -368,7 +408,8 @@ _ROUTES = {
 
 def corruption_fn(name: str):
     """The routed family ``fn(seed, x, severity)``, as ``fast_corruption_fn``
-    routes it; an unknown name raises ``NotImplementedError``."""
+    routes it; glass and elastic also take ``packed=`` (default False), as
+    there. An unknown name raises ``NotImplementedError``."""
     if name not in _ROUTES:
         raise NotImplementedError(f"unknown corruption {name!r}")
     return _ROUTES[name]

@@ -1,4 +1,5 @@
-// K5: glass blur's random resample cascade for Hopper (sm_90a), with a plain C interface.
+// K5 and K5p: glass blur's random resample cascade for Hopper (sm_90a), with a plain C
+// interface. K5 is described first; K5p, its lane-packed form, below it.
 //
 // Replaces fav_tpu/ops/corruptions_pallas.py:_glass_kernel (:295), which
 // glass_resample_pallas (:359, unpacked branch :401-417) runs inside
@@ -43,6 +44,30 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPackedThreads = 512;  // K5p: one 120 KB block fills an SM
+
+// The code byte of every pass of pixels first .. first + n - 1 (element
+// indices of each draw) into codes[pass * n + q], q = pixel - first. The
+// groups of four that cover the range may reach into neighbouring images.
+__device__ __forceinline__ void draw_codes(unsigned char* codes, long long first, int n, int m,
+                                           int passes, uint32_t k0, uint32_t k1) {
+  const long long g0 = first / 4;
+  const int ngroups = static_cast<int>((first + n - 1) / 4 - g0 + 1);
+  const float k = static_cast<float>(2 * m + 1);
+  for (int t = threadIdx.x; t < ngroups * passes; t += blockDim.x) {
+    const int pass = t / ngroups;
+    const long long g = g0 + (t - pass * ngroups);
+    const uint4 words = fav::draw_words(g, static_cast<uint32_t>(pass), k0, k1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long q = 4 * g + j - first;
+      if (q < 0 || q >= n) continue;
+      const float u = fav::bits_to_uniform(fav::word(words, j));
+      const float code = fminf(floorf(__fmul_rn(u, k)), __fsub_rn(k, 1.0f));
+      codes[pass * n + static_cast<int>(q)] = static_cast<unsigned char>(code);
+    }
+  }
+}
 
 __global__ void glass_resample_kernel(const float* __restrict__ x, float* __restrict__ out, int h,
                                       int w, int c, int m, int passes, uint32_t k0, uint32_t k1) {
@@ -57,26 +82,8 @@ __global__ void glass_resample_kernel(const float* __restrict__ x, float* __rest
   float* oi = out + img * d;
 
   for (int e = threadIdx.x; e < d; e += blockDim.x) src[e] = xi[e];
-
-  // Pixel p of this image is element first + p of every draw; the groups of
-  // four that cover it may reach into the neighbouring images.
-  const long long first = img * hw;
-  const long long g0 = first / 4;
-  const int ngroups = static_cast<int>((first + hw - 1) / 4 - g0 + 1);
-  const float k = static_cast<float>(2 * m + 1);
-  for (int t = threadIdx.x; t < ngroups * passes; t += blockDim.x) {
-    const int pass = t / ngroups;
-    const long long g = g0 + (t - pass * ngroups);
-    const uint4 words = fav::draw_words(g, static_cast<uint32_t>(pass), k0, k1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long p = 4 * g + j - first;
-      if (p < 0 || p >= hw) continue;
-      const float u = fav::bits_to_uniform(fav::word(words, j));
-      const float code = fminf(floorf(__fmul_rn(u, k)), __fsub_rn(k, 1.0f));
-      codes[pass * hw + static_cast<int>(p)] = static_cast<unsigned char>(code);
-    }
-  }
+  // pixel p of this image is element img * hw + p of every draw
+  draw_codes(codes, img * hw, hw, m, passes, k0, k1);
   __syncthreads();
 
   for (int pass = 0; pass < passes; ++pass) {
@@ -98,6 +105,98 @@ __global__ void glass_resample_kernel(const float* __restrict__ x, float* __rest
   for (int e = threadIdx.x; e < d; e += blockDim.x) oi[e] = src[e];
 }
 
+// K5p: the lane-packed cascade.
+//
+// Replaces fav_tpu/ops/corruptions_pallas.py:_glass_kernel_packed (:319),
+// which glass_resample_pallas runs when packed=True and G > 1 (:368-399).
+// G = max(1, 128 // W) lowered to a divisor of B (packed_group in
+// fav_tpu_torch/ops/corruptions.py) puts G images side by side along a row
+// of the TPU's 128 lanes: one (H, G*W) row block holds G images. Each row
+// pass is unchanged; a column pass clips the offset per lane,
+// d_eff = clip(code - m, -j, W - 1 - j) for lane-local column j, so a lane
+// reads inside its own image.
+//
+// What it computes equals K5 bit for bit: pixel (b, i, j) of pass p takes
+// element b*H*W + i*W + j of Philox draw p, as in K5, and clip(code - m, -j,
+// W - 1 - j) + j is clamp(j + code - m, 0, W - 1). On the TPU the two arms
+// draw differently: the hardware PRNG is seeded per grid step
+// (corruptions_pallas.py:333) and a packed step covers other pixels than an
+// unpacked one. Here the draws follow the pixel, so packing changes no bit.
+//
+// Bound: bytes, the same as K5 (each image read once and written once).
+//
+// Design: one block per group of G consecutive images, held in shared
+// memory as one packed (H, G*W, C) tile in a ping-pong pair, with one code
+// byte per pixel per pass: 2*G*H*W*C*4 + passes*G*H*W bytes, 120 KB at
+// G = 4, 32x32x3 and 3 rounds, above the 48 KB a block gets by default, so
+// the launcher opts in (at most 227 KB a block on Hopper). The G images lie
+// one after another in device memory, so the block reads and writes them in
+// that order, coalesced, and packs and unpacks on the way into and out of
+// shared memory: no transposed copy goes through device memory, where the
+// TPU's pack and unpack transposes (:375-380, :395-399) are what made
+// packing lose there (:363-366). A GPU has no lanes to fill, so the packing
+// buys nothing here; it is kept to hold the clipped-offset arithmetic of
+// the TPU kernel to K5 on the card.
+__global__ void glass_resample_packed_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                             int g, int h, int w, int c, int m, int passes,
+                                             uint32_t k0, uint32_t k1) {
+  extern __shared__ float smem[];
+  const int hw = h * w;
+  const int gw = g * w;
+  const int n = g * hw;  // pixels of the group
+  const int d = n * c;
+  float* src = smem;
+  float* dst = smem + d;
+  unsigned char* codes = reinterpret_cast<unsigned char*>(smem + 2 * d);
+  const long long first = static_cast<long long>(blockIdx.x) * n;  // the group's first pixel
+  const float* xg = x + first * c;
+  float* og = out + first * c;
+
+  // element e of the group in device order is channel ch of pixel q =
+  // s*H*W + i*W + j; in the tile it is channel ch of packed pixel i*G*W + s*W + j
+  for (int e = threadIdx.x; e < d; e += blockDim.x) {
+    const int q = e / c;
+    const int s = q / hw;
+    const int r = q - s * hw;
+    const int i = r / w;
+    src[(i * gw + s * w + (r - i * w)) * c + (e - q * c)] = xg[e];
+  }
+  draw_codes(codes, first, n, m, passes, k0, k1);
+  __syncthreads();
+
+  for (int pass = 0; pass < passes; ++pass) {
+    const unsigned char* pc = codes + pass * n;
+    const bool rows = (pass & 1) == 0;
+    for (int p = threadIdx.x; p < n; p += blockDim.x) {
+      const int i = p / gw;
+      const int lane = p - i * gw;
+      const int s = lane / w;
+      const int j = lane - s * w;
+      const int off = static_cast<int>(pc[s * hw + i * w + j]) - m;
+      int from;
+      if (rows) {
+        from = min(max(i + off, 0), h - 1) * gw + lane;
+      } else {
+        const int d_eff = min(max(off, -j), w - 1 - j);  // stays in the lane's own image
+        from = p + d_eff;
+      }
+      for (int ch = 0; ch < c; ++ch) dst[p * c + ch] = src[from * c + ch];
+    }
+    __syncthreads();
+    float* t = src;
+    src = dst;
+    dst = t;
+  }
+
+  for (int e = threadIdx.x; e < d; e += blockDim.x) {
+    const int q = e / c;
+    const int s = q / hw;
+    const int r = q - s * hw;
+    const int i = r / w;
+    og[e] = src[(i * gw + s * w + (r - i * w)) * c + (e - q * c)];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -116,6 +215,25 @@ int fav_glass_resample(const float* x, float* out, int batch, int h, int w, int 
                       static_cast<size_t>(passes) * h * w;
   glass_resample_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, out, h, w, c, m, passes, seed_lo, seed_hi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5p over batch / g groups of g images. Shared memory per block: 2 g h w c
+// floats and passes g h w code bytes, above 48 KB at the main path's shapes:
+// the launcher opts the kernel in to that much (the wrapper keeps it within
+// the 227 KB a Hopper block can have); m within 0..127 as for K5.
+int fav_glass_resample_packed(const float* x, float* out, int batch, int g, int h, int w, int c,
+                              int m, int passes, uint32_t seed_lo, uint32_t seed_hi, void* stream) {
+  if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || passes <= 0) return 0;
+  if (g <= 0 || batch % g) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2 * static_cast<size_t>(g) * h * w * c * sizeof(float) +
+                      static_cast<size_t>(passes) * g * h * w;
+  const cudaError_t err = cudaFuncSetAttribute(glass_resample_packed_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  glass_resample_packed_kernel<<<batch / g, kPackedThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, out, g, h, w, c, m, passes, seed_lo, seed_hi);
   return static_cast<int>(cudaGetLastError());
 }
 

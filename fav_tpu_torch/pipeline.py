@@ -11,10 +11,13 @@ the batch is corrupted, goes through the bf16 forward, MSP confidence and
 The default cells are ``bench.py``'s ``BENCH_CELLS``: all fifteen families
 at severity 3, in its order, so the whole main path runs: K1-K6 and the
 band-matrix families (``ops/corruptions_cuda.py``), then the nano forward.
+``packed=True`` is the packed arm of ``bench.py --ab-packed``: glass and
+elastic take K5p and K6p.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Sequence
 
 import torch
@@ -25,7 +28,8 @@ from fav_tpu_torch.models.cnn import create_model
 from fav_tpu_torch.models.uncertainty import anomaly_from_confidence, msp
 from fav_tpu_torch.ops import corruptions_cuda
 
-__all__ = ["BENCH_CELLS", "BATCH", "FAILURE_THRESHOLD", "cell_scalars", "make_megastep", "entry"]
+__all__ = ["BENCH_CELLS", "BATCH", "FAILURE_THRESHOLD", "PACKED_FAMILIES", "cell_scalars", "make_megastep",
+           "entry"]
 
 # bench.py:27-43: all fifteen families at the severity-3 midpoint, in order.
 BENCH_CELLS = (
@@ -47,6 +51,7 @@ BENCH_CELLS = (
 )
 BATCH = 6144  # bench.py's batch
 FAILURE_THRESHOLD = 0.5
+PACKED_FAMILIES = ("glass_blur", "elastic_transform")  # the families with a packed kernel
 
 SEED_HIGH = 1 << 62  # per-cell seeds are drawn in [0, SEED_HIGH)
 
@@ -66,6 +71,7 @@ def make_megastep(
     cells: Sequence[tuple[str, int]] = BENCH_CELLS,
     device: str | torch.device | None = None,
     corruption_fn: Callable[[str], Callable] | None = None,
+    packed: bool = False,
 ):
     """``megastep(images, generator) -> [3]`` over ``cells``.
 
@@ -74,11 +80,15 @@ def make_megastep(
     ``torch.Generator``, so two megasteps given equally seeded generators
     corrupt alike. ``corruption_fn`` maps a family name to
     ``fn(seed, x, severity)``; it defaults to the kernel router
-    ``ops.corruptions_cuda.corruption_fn``.
+    ``ops.corruptions_cuda.corruption_fn``. The glass and elastic cells are
+    always given ``packed=packed``, False included: ``bench.py``'s A/B
+    (:107-115) left its packed arm to the callees' defaults, which are
+    unpacked, so both its arms ran unpacked.
     """
     dev = resolve_device(device)
     route = corruption_fn or corruptions_cuda.corruption_fn
-    fns = [(route(name), severity) for name, severity in cells]
+    fns = [(functools.partial(route(name), packed=packed) if name in PACKED_FAMILIES else route(name), severity)
+           for name, severity in cells]
 
     @torch.no_grad()
     def megastep(images: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

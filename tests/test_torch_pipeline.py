@@ -136,9 +136,11 @@ def _oracle_draw_router(images, draws):
             k1, _ = jax.random.split(key)
             u = t(jax.random.uniform(k1, shape, jnp.float32))
             return lambda seed, x, sev: tc.impulse_from_uniform(x, u, sev)
+        # make_megastep hands glass and elastic ``packed``; packing moves no
+        # value (tests/test_torch_packed.py), so the oracle forms serve both arms
         if name == "glass_blur":
             us = [t(u) for u in _glass_uniforms(key, shape)]
-            return lambda seed, x, sev: tc.glass_blur_with(
+            return lambda seed, x, sev, packed=False: tc.glass_blur_with(
                 x, sev, lambda y, m, iters: tc.glass_resample_from_uniforms(y, us, m))
         if name == "motion_blur":
             idx = int(jax.random.randint(key, (), 0, 8))
@@ -152,7 +154,7 @@ def _oracle_draw_router(images, draws):
             transform = tc.frost_from_octaves if name == "frost" else tc.fog_from_octaves
             return lambda seed, x, sev: transform(x, octaves, sev)
         if name == "elastic_transform":
-            def elastic(seed, x, sev):
+            def elastic(seed, x, sev, packed=False):
                 ys, xs = jc._elastic_fields(key, jnp.asarray(x.numpy()), sev)
                 return tc.elastic_from_fields(x, t(ys), t(xs), sev)
             return elastic
