@@ -24,14 +24,18 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                for K6, the time of ``grid_sample`` computing the same warp;
                K7 (frame statistics and histogram) at the service's
                (32, 240, 320) and the grid's (6144, 32, 32), exact, beside
-               ``torch.bincount``'s time for the histogram part; K8
+               ``torch.bincount``'s time for the histogram part, and exact
+               at (3, 241, 317), (5, 2, 2) and (1, 1024, 2048) on a base
+               off a 16-byte boundary (flat frames and pixels outside
+               0..255 in every shape); K8
                (corrupt-normalize) at (6144, 32, 32, 3), at sigma 0 and 0.18;
                K9a and K9b (the AugMix shear passes) at an AugMix view's
                chain batch (768, 32, 32, 3), m = 18 and 22, exact, beside
                ``grid_sample`` computing the same shear; K5p and K6p (the
                lane-packed glass and elastic kernels) at (6144, 32, 32, 3)
                against their plain versions and against K5 and K6, exact,
-               K6p at severities 1-5;
+               K6p at severities 1-5, at batch 6144 and at batch 12 on a
+               base off a 16-byte boundary, beside ``grid_sample``;
 4. golden   -- the nano student's bf16 logits on fixed images against the
                JAX package's, committed in ``weights/student_nano.golden.json``;
 5. megastep -- one megastep at batch 6144 over all fifteen cells with the
@@ -192,12 +196,20 @@ MEGASTEP_TOL = 2e-3
 # twice that.
 GOLDEN_ATOL = 0.125
 
-# K7 per pixel, counted from csrc/frame_stats.cu: the index, its row and
-# column (4), four REFLECT_101 folds (3 each) and neighbour offsets (4), the
-# Laplacian (5), the four sums (Σg 1, Σlap 2, Σlap² 3, Σ|g - p| 3), the
-# histogram's range test, match and leader test (4) and its atomic (1).
-K7_OPS_PER_PIXEL = 4 + 4 * 3 + 4 + 5 + 9 + 5
-K7_SHAPES = ((32, 240, 320), (6144, 32, 32))  # the service's bucket 32, the grid's batch
+# K7 per pixel, the function's own operations, whatever the design: the
+# Laplacian (5), the four int64 sums (Σg 1, Σlap 2, Σlap² 3, Σ|g - p| 3) and
+# the histogram's range test (2) and count (1).
+K7_OPS_PER_PIXEL = 5 + 9 + 3
+K7_SHAPES = ((32, 240, 320), (6144, 32, 32))  # the service's bucket 32, the grid's batch: timed
+# held to the plain version only, on a base 4 bytes off a 16-byte boundary:
+# rows not a multiple of the strip and a width not a multiple of 4, the
+# smallest frame, the largest the int64 sums allow (n = 2**21), a frame
+# whose 2-row strip would pass 48 KB with the block's header, and two whose
+# rows pass it (column tiles, each staged row at its own 16-byte phase)
+K7_CHECK_SHAPES = ((3, 241, 317), (5, 2, 2), (1, 1024, 2048), (1, 1000, 2000), (1, 3, 3000), (1, 3, 4099))
+# K6p at a batch of fewer groups than its persistent grid has blocks, on a
+# base 4 bytes off a 16-byte boundary as well
+K6P_SMALL_BATCH = 12
 # K8 per element: with noise, K1's (two quarter Philox calls, two uniform
 # maps, log, sqrt, cos and three products) and its add; the mean's add; the
 # photometric part (4); the clip (2); the normalisation (2).
@@ -363,32 +375,66 @@ class LatencyRecorder:
         self.seconds.setdefault(name, []).append(seconds)
 
 
-def check_k7(dev, gen, bound) -> dict:
-    """K7 against its plain version at the service's and the grid's shapes:
-    statistics and histograms exact. Times the wrapper, the plain version
-    and ``torch.bincount`` (the histogram part) at each shape."""
+def k7_frames(dev, gen, b: int, h: int, w: int, offset: int = 0):
+    """gray, prev [b, h, w] int32 and has_prev [b] for K7's checks: random
+    levels; the first of every eight frames flat (all of them with b < 8
+    but one), the top half of the last frame flat, some 1 in 1000 pixels
+    outside 0..255; ``offset`` ints into their buffers, so a base off a
+    16-byte boundary."""
     import torch
 
+    def frame():
+        buf = torch.empty(b * h * w + offset, dtype=torch.int32, device=dev)
+        t = buf[offset:].view(b, h, w)
+        t.copy_(torch.randint(0, 256, (b, h, w), generator=gen, device=dev, dtype=torch.int32))
+        return t
+
+    gray, prev = frame(), frame()
+    flat = max(1, b // 8) if b > 1 else 0
+    gray[:flat] = torch.randint(0, 256, (flat, 1, 1), generator=gen, device=dev, dtype=torch.int32)
+    gray[-1, : h // 2] = 77
+    px = gray.view(-1)
+    odd = torch.randint(0, px.numel(), (max(1, px.numel() // 1000),), generator=gen, device=dev)
+    px[odd] = torch.randint(-300, 600, odd.shape, generator=gen, device=dev, dtype=torch.int32)
+    has_prev = torch.arange(b, device=dev) % 4 != 0
+    return gray, prev, has_prev
+
+
+def check_k7(dev, gen, bound) -> dict:
+    """K7 against its plain version, statistics and histograms exact, at the
+    service's and the grid's shapes (timed: the wrapper, the plain version
+    and ``torch.bincount`` for the histogram part) and at K7_CHECK_SHAPES."""
+    import torch
+
+    from fav_tpu_torch.ops import corruptions_cuda as kern
     from fav_tpu_torch.ops import signal as sig
     from fav_tpu_torch.ops import signal_cuda
 
     shapes = {}
-    for b, h, w in K7_SHAPES:
-        gray = torch.randint(0, 256, (b, h, w), generator=gen, device=dev, dtype=torch.int32)
-        # flat frames put every pixel in one bin
-        gray[: b // 8] = torch.randint(0, 256, (b // 8, 1, 1), generator=gen, device=dev, dtype=torch.int32)
-        prev = torch.randint(0, 256, (b, h, w), generator=gen, device=dev, dtype=torch.int32)
-        has_prev = torch.arange(b, device=dev) % 4 != 0
+    for b, h, w in K7_SHAPES + K7_CHECK_SHAPES:
+        timed = (b, h, w) in K7_SHAPES
+        gray, prev, has_prev = k7_frames(dev, gen, b, h, w, offset=0 if timed else 1)
+        geo = signal_cuda.frame_stats_geometry(b, h, w, kern.multiprocessors(dev))
         stats, hist = signal_cuda.frame_statistics(gray, prev, has_prev)
         want_stats, want_hist = sig.frame_statistics_plain(gray, prev, has_prev)
         torch.cuda.synchronize()
         check(torch.equal(stats, want_stats), f"K7 {(b, h, w)}: statistics differ from the plain version by "
                                               f"{float((stats - want_stats).abs().max())}")
         check(torch.equal(hist, want_hist), f"K7 {(b, h, w)}: histograms differ from the plain version")
-        check(bool((hist.sum(-1) == h * w).all()), f"K7 {(b, h, w)}: a histogram does not count every pixel")
+        in_range = ((gray >= 0) & (gray <= 255)).sum((1, 2)).to(torch.int32)
+        check(torch.equal(hist.sum(-1), in_range), f"K7 {(b, h, w)}: a histogram does not count every pixel in 0..255")
+        # a second launch finds the ticket counters at zero again
+        again = signal_cuda.frame_statistics(gray, prev, has_prev)
+        check(torch.equal(again[0], stats) and torch.equal(again[1], hist), f"K7 {(b, h, w)}: a second launch differs")
+        layout = (f"{geo.tiles} tiles of {geo.rows}x{geo.cols} a frame, {geo.blocks} blocks of {geo.units}x{geo.team} "
+                  f"threads, {geo.shared_bytes} B shared")
+        if not timed:
+            phase("kernels", f"K7 frame_stats {(b, h, w)} (base 4 bytes off 16): statistics and histograms equal to "
+                             f"the plain version; {layout}")
+            continue
         ms = time_ms(lambda: signal_cuda.frame_statistics(gray, prev, has_prev), reps=20)
         plain_ms = time_ms(lambda: sig.frame_statistics_plain(gray, prev, has_prev), reps=3, warmup=1)
-        keys = (gray + 256 * torch.arange(b, device=dev, dtype=torch.int32).view(b, 1, 1)).reshape(-1).long()
+        keys = (gray.clamp(0, 255) + 256 * torch.arange(b, device=dev, dtype=torch.int32).view(b, 1, 1)).reshape(-1).long()
         library_ms = time_ms(lambda: torch.bincount(keys, minlength=b * 256), reps=20)
         pixels = b * h * w
         # two int32 frames and the int32 flags read; statistics and histograms written
@@ -398,10 +444,40 @@ def check_k7(dev, gen, bound) -> dict:
         shapes[f"{b}x{h}x{w}"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                                   "bound_by": by, "library_ms": library_ms}
         phase("kernels", f"K7 frame_stats {(b, h, w)}: statistics and histograms equal to the plain version; "
-                         f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}: "
-                         f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} Gop); torch.bincount (the histogram "
-                         f"part only) {library_ms:.4f} ms")
+                         f"{layout}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}: "
+                         f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} Gop), {ms / bound_ms:.1f}x the bound; "
+                         f"torch.bincount (the histogram part only) {library_ms:.4f} ms")
     return shapes
+
+
+def check_k6p_small_batch(x) -> None:
+    """K6p at K6P_SMALL_BATCH images, fewer groups than its grid has
+    blocks, on a base 4 bytes off a 16-byte boundary: equal to K6 and to
+    its plain version at every severity."""
+    import torch
+
+    from fav_tpu_torch.ops import corruptions as plain
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+
+    b = K6P_SMALL_BATCH
+    buf = torch.empty(x[:b].numel() + 1, dtype=x.dtype, device=x.device)
+    xb = buf[1:].view(x[:b].shape)
+    xb.copy_(x[:b])
+    groups = {}
+    for level in range(1, len(plain.ELASTIC_SEV) + 1):
+        fy, fx = plain.elastic_fields(SEED + 14, xb, level, uniform=kern.uniform)
+        g = plain.packed_group(b, xb.shape[2] + 2 * (plain.elastic_margin(level) + 1))
+        got = kern.elastic_warp(xb, fy, fx, level, packed=True)
+        k6 = kern.elastic_warp(xb, fy, fx, level)
+        want = plain.elastic_from_fields_packed(xb, fy, fx, level, g)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and torch.equal(got, k6),
+              f"elastic_warp_packed batch {b} severity {level} (G={g}): max diff "
+              f"{float((got - want).abs().max())} from its plain version, {float((got - k6).abs().max())} from K6")
+        geo = kern.elastic_packed_geometry(b, g, *xb.shape[1:], kern.multiprocessors(x.device))
+        groups[level] = (g, geo.blocks)
+    phase("kernels", f"K6p elastic_warp_packed at batch {b} (base 4 bytes off 16): equal to K6 and its plain version "
+                     f"at severities 1-5 (G, blocks: {groups})")
 
 
 def check_k8(x, bound) -> dict:
@@ -1137,15 +1213,20 @@ def main(argv: list[str]) -> int:
                      f"{bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} Gop of live taps); grid_sample "
                      f"{library_ms:.4f} ms (max|grid_sample-kernel| {lib_err:.3e}, another order of operations)")
     g6, err, err_k6 = packed_err[sev]
+    geo6 = kern.elastic_packed_geometry(b, g6, h, w, c, kern.multiprocessors(dev))
+    k6_ms = ms
     ms = time_ms(lambda: kern.elastic_warp(x, ys, xs, sev, packed=True), reps=20)
     plain_ms = time_ms(lambda: plain.elastic_from_fields_packed(x, ys, xs, sev, g6), reps=3, warmup=1)
     report["elastic_warp_packed"] = {"kid": "K6p", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                      "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
     phase("kernels", f"K6p elastic_warp_packed (m={em}, G={g6}): max|kernel-plain| {err:.3e}, max|K6p-K6| "
                      f"{err_k6:.3e} (exact, and at severities 1-5: G "
-                     f"{'/'.join(str(v[0]) for v in packed_err.values())}); kernel {ms:.4f} ms, plain "
-                     f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}, as K6); grid_sample {library_ms:.4f} ms")
+                     f"{'/'.join(str(v[0]) for v in packed_err.values())}); {geo6.blocks} blocks, "
+                     f"{geo6.shared_bytes} B shared; kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}, as K6), {ms / bound_ms:.2f}x the bound; "
+                     f"grid_sample {library_ms:.4f} ms, K6 {k6_ms:.4f} ms")
     del got, ys, xs, x_nchw, grid
+    check_k6p_small_batch(x)
 
     # K7 at the service's and the grid's shapes; K8 at the megastep's
     k7_report = check_k7(dev, gen, bound)

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -56,6 +57,9 @@ __all__ = [
     "PHOTOMETRIC_MAX_D",
     "SHARED_MEMORY_LIMIT",
     "OPT_IN_SHARED_MEMORY_LIMIT",
+    "PackedWarpGeometry",
+    "elastic_packed_geometry",
+    "multiprocessors",
     "launch_counts",
     "reset_launch_counts",
     "uniform",
@@ -84,9 +88,45 @@ PHOTOMETRIC_MAX_D = 11 * 1024
 # K5 and K6 hold one image per block in dynamic shared memory, within the
 # same 48 KB.
 SHARED_MEMORY_LIMIT = 48 * 1024
-# K5p and K6p hold a group of G images per block; their launchers opt in to
-# more than 48 KB, up to what a Hopper block can have.
+# K5p holds a group of G images per block, K6p two; their launchers opt in
+# to more than 48 KB, up to what a Hopper block can have.
 OPT_IN_SHARED_MEMORY_LIMIT = 227 * 1024
+# An H100 SM's shared memory, of which each resident block also takes 1 KB.
+SM_SHARED_MEMORY = 228 * 1024
+# K6p's persistent grid: up to two blocks an SM.
+K6P_BLOCKS_PER_SM = 2
+
+
+class PackedWarpGeometry(NamedTuple):
+    """K6p's launch: ``blocks`` blocks, each with ``shared_bytes`` of
+    shared memory, which hold three tiles of ``stage_floats`` floats and
+    the barriers (the launcher derives the same bytes)."""
+    stage_floats: int
+    shared_bytes: int
+    blocks: int
+
+
+def elastic_packed_geometry(batch: int, g: int, h: int, w: int, c: int, sms: int) -> PackedWarpGeometry:
+    """K6p's geometry for ``batch // g`` groups of ``g`` (H, W, C) images on
+    a card of ``sms`` SMs: a tile holds a group unpadded, G H W C floats
+    and three more for its 16-byte phase, rounded to 16 bytes; a block
+    holds the kernel's fixed ring of two input tiles and one output tile
+    (csrc/elastic.cu) and 16 bytes of barriers; at most one block a
+    group. Raises where it does not fit."""
+    if g < 1 or batch < 1 or batch % g:
+        raise ValueError(f"elastic_warp: groups of {g} do not divide a batch of {batch}")
+    stage_floats = (g * h * w * c + 3 + 3) // 4 * 4
+    shared = 16 + 3 * stage_floats * 4
+    _shared_memory("elastic_warp", shared, OPT_IN_SHARED_MEMORY_LIMIT,
+                   f"3 tiles of a group of {g} {h}x{w}x{c} images")
+    per_sm = max(1, min(K6P_BLOCKS_PER_SM, SM_SHARED_MEMORY // (shared + 1024)))
+    return PackedWarpGeometry(stage_floats, shared, min(batch // g, per_sm * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def multiprocessors(device: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 class CudaKernel:
@@ -147,9 +187,10 @@ KERNELS = {
                                [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]),
     # K6p, replaces _elastic_kernel_packed
     "elastic_warp_packed": CudaKernel("elastic", "fav_elastic_warp_packed",
-                                      [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P]),
+                                      [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P]),
     # K7, replaces signal_pallas.py:_frame_stats_kernel; wrapper in ops/signal_cuda.py
-    "frame_stats": CudaKernel("frame_stats", "fav_frame_stats", [_P, _P, _P, _P, _P, _I32, _I32, _I32, _P]),
+    "frame_stats": CudaKernel("frame_stats", "fav_frame_stats",
+                              [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P]),
     # K8, replaces corruptions_pallas.py:_corrupt_normalize_kernel
     "corrupt_normalize": CudaKernel("corruptions", "fav_corrupt_normalize",
                                     [_P, _P, _I32, _I32, _U32, _U32, _F32, _F32, _F32, _F32, _F32, _P]),
@@ -358,10 +399,9 @@ def elastic_warp(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, severity: 
         return plain.elastic_from_fields(x, ys, xs, severity)
     out = torch.empty_like(x)
     if g > 1:
-        _shared_memory("elastic_warp", (h + 2 * p) * g * (w + 2 * p) * c * 4, OPT_IN_SHARED_MEMORY_LIMIT,
-                       f"the padded tile of {g} {h}x{w}x{c} images")
+        geo = elastic_packed_geometry(b, g, h, w, c, multiprocessors(x.device))
         KERNELS["elastic_warp_packed"].launch(x.device, x.data_ptr(), ys.data_ptr(), xs.data_ptr(), out.data_ptr(),
-                                              b, g, h, w, c, m)
+                                              b, g, h, w, c, m, geo.blocks)
         return out
     _shared_memory("elastic_warp", h * w * c * 4, SHARED_MEMORY_LIMIT, f"a {h}x{w}x{c} image")
     KERNELS["elastic_warp"].launch(x.device, x.data_ptr(), ys.data_ptr(), xs.data_ptr(), out.data_ptr(),

@@ -135,64 +135,217 @@ __global__ void elastic_warp_kernel(const float* __restrict__ x, const float* __
 // segment, and the pad lanes' outputs are sliced off.
 //
 // What it computes equals K6 bit for bit given the same coordinates: the
-// same live taps, tents, order and separate __fmul_rn/__fadd_rn; a tap's
-// source is padded row i + oy + p and lane s*wp + j + ox + p of the tile,
-// which hold x[clamp(i + oy), clamp(j + ox)] of image s.
+// same live taps, tents, order and separate __fmul_rn/__fadd_rn, and a
+// tap's source x[s, clamp(i + oy), clamp(j + ox)] of image s of the group,
+// which is what the TPU kernel's padded lane s*wp + j + ox + p holds.
 //
 // Bound: bytes, the same as K6: the images and coordinates read once, the
-// output written once; the padded tile never reaches device memory.
+// output written once (0.060 ms at (6144, 32, 32, 3) at 3.35 TB/s).
 //
-// Design: one block per group of G consecutive images. The block builds
-// their edge-padded segments side by side, an (H + 2p, G*wp, C) tile, in
-// shared memory with clamped loads, so no padded copy goes through device
-// memory (the TPU route pads and packs in HBM, :545-576). One thread per
-// output pixel of the G images, in device order, so a warp's coordinates
-// and outputs are coalesced; a pad lane is never computed or written. The
-// tile is 45-62 KB at 32x32x3 (63,504 bytes at severity 3, G = 3), above
-// the 48 KB a block gets by default at every severity but 4, so the
-// launcher opts in. A GPU has no lanes to fill, so the packing buys
-// nothing here; it holds the TPU kernel's segment arithmetic to K6.
+// Design. A GPU has no lanes to fill, so the padding and the packing buy
+// nothing: the G images of a group lie contiguous in device memory, and the
+// kernel holds them so in shared memory, G H W C floats (36,864 bytes at
+// G = 3), the edge padding being K6's clamp of the row and column index
+// inside image s. The grid is persistent: up to two blocks an SM (the
+// wrapper's elastic_packed_geometry), each walking over groups blockIdx.x,
+// blockIdx.x + gridDim.x, ... with a ring of two input tiles and one output
+// tile. One thread fills an input tile with a single 1-D bulk copy
+// (cp.async.bulk, the TMA engine) that completes on the stage's mbarrier,
+// so group k + 1's copy is in flight while group k's warp is computed, and
+// no thread spends an instruction per element on it. One thread per output
+// pixel, in device order, so a warp's coordinates are coalesced; a thread
+// loads the coordinates of up to kChunk of its pixels before it computes
+// any, so it waits on device memory once a chunk and not once a pixel, and
+// steps over its pixels by fixed image, row and column increments, with no
+// division. The outputs go to the output tile, and one bulk copy writes the
+// group back while the next group is computed, where stores straight from
+// the threads would each cover a third of their sectors (a warp's C-float
+// pixels lie 12 bytes apart). Each tile sits at its group's 16-byte phase
+// in device memory, so the bulk copies' ends line up at any base address;
+// the at most three floats before and after a 16-byte-aligned body are
+// copied by plain loads and stores.
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(shared_addr(bar)) : "memory");
+}
+
+// Waits for the completion of phase `parity` of the barrier.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(shared_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Starts the copy of a group's `len` floats from src into buf + phase(src),
+// and returns that phase. Thread 0 arms the barrier with the body's bytes
+// and issues the bulk copy; threads 1-6 copy the head and tail. The caller
+// has synchronised the block since the buffer was last read.
+__device__ __forceinline__ int load_group(float* buf, uint64_t* bar, const float* src, int len) {
+  const int ph = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const int head = min((4 - ph) & 3, len);
+  const int body = ((len - head) >> 2) << 2;
+  const int tail = len - head - body;
+  float* tile = buf + ph;
+  const int t = threadIdx.x;
+  if (t == 0) {
+    // the generic proxy's reads of this buffer come before the async proxy's writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(shared_addr(bar)),
+                 "r"(body * 4)
+                 : "memory");
+    if (body > 0) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+              shared_addr(tile + head)),
+          "l"(src + head), "r"(body * 4), "r"(shared_addr(bar))
+          : "memory");
+    }
+  } else if (t <= head) {
+    tile[t - 1] = src[t - 1];
+  } else if (t <= head + tail) {
+    const int e = body + t - 1;  // head + body + (t - 1 - head)
+    tile[e] = src[e];
+  }
+  return ph;
+}
+
+// Starts the write of a group's `len` output floats, held at buf +
+// phase(dst), to dst: every thread has fenced its writes to the buffer and
+// the block has synchronised. Thread 0 issues one bulk copy of the
+// 16-byte-aligned body and commits it; threads 1-6 store the head and tail.
+__device__ __forceinline__ void store_group(const float* buf, float* dst, int len) {
+  const int ph = static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+  const int head = min((4 - ph) & 3, len);
+  const int body = ((len - head) >> 2) << 2;
+  const int tail = len - head - body;
+  const float* tile = buf + ph;
+  const int t = threadIdx.x;
+  if (t == 0) {
+    if (body > 0) {
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst + head),
+                   "r"(shared_addr(tile + head)), "r"(body * 4)
+                   : "memory");
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  } else if (t <= head) {
+    dst[t - 1] = tile[t - 1];
+  } else if (t <= head + tail) {
+    const int e = body + t - 1;
+    dst[e] = tile[e];
+  }
+}
+
+constexpr int kChunk = 8;  // K6p: pixels a thread loads the coordinates of at once
+constexpr int kPackedThreads = 512;  // K6p: threads a block
+constexpr int kOptInLimit = 227 * 1024;  // the shared memory a Hopper block can opt in to
+
 __global__ void elastic_warp_packed_kernel(const float* __restrict__ x, const float* __restrict__ ys,
                                            const float* __restrict__ xs, float* __restrict__ out,
-                                           int g, int h, int w, int c, int m) {
-  extern __shared__ float tile[];
-  const int p = m + 1;
-  const int hp = h + 2 * p;
-  const int wp = w + 2 * p;
-  const int gwp = g * wp;
+                                           int groups, int g, int h, int w, int c, int m,
+                                           int stage_floats) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // one barrier an input stage
+  float* stages = reinterpret_cast<float*>(smem + 16);  // two input stages, then the output stage
+  float* out_stage = stages + 2 * stage_floats;
   const int hw = h * w;
-  const long long first = static_cast<long long>(blockIdx.x) * g * hw;  // the group's first pixel
-  const float* xg = x + first * c;
+  const int n_group = g * hw;   // pixels a group
+  const int len = n_group * c;  // floats a group
 
-  // tile element (r, lane = s*wp + q, ch) holds x[s, clamp(r - p), clamp(q - p), ch]
-  const int n_tile = hp * gwp * c;
-  for (int e = threadIdx.x; e < n_tile; e += blockDim.x) {
-    const int pix = e / c;
-    const int r = pix / gwp;
-    const int lane = pix - r * gwp;
-    const int s = lane / wp;
-    const int i = min(max(r - p, 0), h - 1);
-    const int j = min(max(lane - s * wp - p, 0), w - 1);
-    tile[e] = xg[((s * h + i) * w + j) * c + (e - pix * c)];
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  for (int q = threadIdx.x; q < g * hw; q += blockDim.x) {
-    const int s = q / hw;
-    const int r = q - s * hw;
-    const int i = r / w;
-    const int j = r - i * w;
-    const long long px = first + q;
-    const Taps ty = taps(__fsub_rn(ys[px], static_cast<float>(i)), m);
-    const Taps tx = taps(__fsub_rn(xs[px], static_cast<float>(j)), m);
-    int row[2], col[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      row[t] = (i + ty.off[t] + p) * gwp * c;  // read only where the tap is live
-      col[t] = (s * wp + j + tx.off[t] + p) * c;
+  int k = blockIdx.x;  // the wrapper launches at most one block a group
+  int ph = load_group(stages, &bars[0], x + static_cast<long long>(k) * len, len);
+  __syncthreads();  // the first group's head and tail
+
+  // thread t's first pixel of a group (image s0, row i0, column j0) and the
+  // step to its next, blockDim.x pixels on
+  const int t = threadIdx.x;
+  const int s0 = t / hw;
+  const int i0 = (t - s0 * hw) / w;
+  const int j0 = t - s0 * hw - i0 * w;
+  const int step = blockDim.x;
+  const int ds = step / hw;
+  const int di = (step - ds * hw) / w;
+  const int dj = step - ds * hw - di * w;
+  const int row_stride = w * c;
+
+  for (int it = 0; k < groups; ++it, k += gridDim.x) {
+    const int stage = it & 1;
+    const int next = k + gridDim.x;
+    int ph_next = 0;
+    if (next < groups)
+      ph_next = load_group(stages + (stage ^ 1) * stage_floats, &bars[stage ^ 1],
+                           x + static_cast<long long>(next) * len, len);
+    mbar_wait(&bars[stage], (it >> 1) & 1);
+    if (it > 0) {
+      // the previous group's bulk write has read the output stage
+      if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      __syncthreads();
     }
-    sum_taps(tile, ty, tx, row, col, c, out + px * c);
+    const float* tile = stages + stage * stage_floats + ph;
+    float* dst = out + static_cast<long long>(k) * len;
+    float* o = out_stage + static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+
+    const long long first = static_cast<long long>(k) * n_group;  // the group's first pixel
+    int s = s0, i = i0, j = j0;
+    // the coordinates of up to kChunk of this thread's pixels are loaded
+    // together, so their latency is paid once a chunk and not once a pixel
+    for (int q0 = t; q0 < n_group; q0 += kChunk * step) {
+      float cy[kChunk], cx[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int q = q0 + u * step;
+        cy[u] = q < n_group ? ys[first + q] : 0.0f;
+        cx[u] = q < n_group ? xs[first + q] : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int q = q0 + u * step;
+        if (q >= n_group) break;
+        const Taps ty = taps(__fsub_rn(cy[u], static_cast<float>(i)), m);
+        const Taps tx = taps(__fsub_rn(cx[u], static_cast<float>(j)), m);
+        int row[2], col[2];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          row[a] = (s * h + min(max(i + ty.off[a], 0), h - 1)) * row_stride;
+          col[a] = min(max(j + tx.off[a], 0), w - 1) * c;
+        }
+        sum_taps(tile, ty, tx, row, col, c, o + q * c);
+        j += dj;
+        i += di;
+        s += ds;
+        if (j >= w) {
+          j -= w;
+          ++i;
+        }
+        if (i >= h) {
+          i -= h;
+          ++s;
+        }
+      }
+    }
+    // this thread's writes to the output stage, before the async proxy reads them
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // every thread is done with this input stage and the output stage
+    store_group(out_stage, dst, len);
+    ph = ph_next;
   }
+  // the last bulk write has finished before the block's shared memory goes
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace
@@ -214,21 +367,27 @@ int fav_elastic_warp(const float* x, const float* ys, const float* xs, float* ou
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6p over batch / g groups of g images. Shared memory per block: the padded
-// tile, (h + 2m + 2) g (w + 2m + 2) c floats, above 48 KB at most severities:
-// the launcher opts the kernel in to that much (the wrapper keeps it within
-// the 227 KB a Hopper block can have).
+// K6p over batch / g groups of g images: a persistent grid of `blocks`
+// blocks (the wrapper's elastic_packed_geometry) of kPackedThreads threads,
+// each with two barriers (16 bytes) and the kernel's fixed ring of two
+// input stages and an output stage of round4(g h w c + 3) floats each in
+// shared memory. Above 48 KB the launcher opts the kernel in; a geometry
+// whose ring passes the 227 KB a Hopper block can have, or that the kernel
+// does not take, returns cudaErrorInvalidValue.
 int fav_elastic_warp_packed(const float* x, const float* ys, const float* xs, float* out, int batch,
-                            int g, int h, int w, int c, int m, void* stream) {
+                            int g, int h, int w, int c, int m, int blocks, void* stream) {
   if (batch <= 0 || h <= 0 || w <= 0 || c <= 0) return 0;
   if (g <= 0 || batch % g) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(h + 2 * m + 2) * g * (w + 2 * m + 2) * c * sizeof(float);
+  const int groups = batch / g;
+  const long long stage_floats = (static_cast<long long>(g) * h * w * c + 3 + 3) & ~3LL;
+  const long long smem = 16 + 3 * stage_floats * 4;
+  if (blocks < 1 || blocks > groups || smem > kOptInLimit) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(elastic_warp_packed_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  elastic_warp_packed_kernel<<<batch / g, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, ys, xs, out, g, h, w, c, m);
+  elastic_warp_packed_kernel<<<blocks, kPackedThreads, static_cast<size_t>(smem),
+                               static_cast<cudaStream_t>(stream)>>>(
+      x, ys, xs, out, groups, g, h, w, c, m, static_cast<int>(stage_floats));
   return static_cast<int>(cudaGetLastError());
 }
 
