@@ -21,7 +21,13 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
 3. kernels  -- at the megastep's shape (6144, 32, 32, 3) float32, each kernel
                K1-K6 and the Philox helper against its plain version on the
                card, with its time, the plain version's time, its bound and,
-               for K6, the time of ``grid_sample`` computing the same warp;
+               for K6, the time of ``grid_sample`` computing the same warp,
+               for K2 of ``torch.poisson`` (the draw only) and for the
+               helper of ``torch.rand`` (each beside its output's mean); K2
+               at severities 1-5 there and at (7, 33, 31, 3) on a base off
+               16 bytes, timed at severities 3 and 1; K5 exact at
+               severities 1-5 there, at (7, 33, 31, 3) and at (7, 32, 32, 3)
+               on a base off 16 bytes, and K5p exact to K5 at each;
                K7 (frame statistics and histogram) at the service's
                (32, 240, 320) and the grid's (6144, 32, 32), exact, beside
                ``torch.bincount``'s time for the histogram part, and exact
@@ -175,6 +181,16 @@ PACKED_MEGASTEP_LAUNCHES = {**MEGASTEP_LAUNCHES, "glass_resample": 0, "glass_res
 K1_TOL = 1e-5  # logf/cosf/sqrtf ulps between the kernel's and PyTorch's builds
 K4_CONTRAST_TOL = 1e-6  # the per-image mean is summed in another order
 K2_MAX_TIE_FRACTION = 1e-4  # counts may differ only where u sits on a CDF partial sum
+# K2 held at every severity (k_max 145 .. 25) and, on a base 4 bytes off a
+# 16-byte boundary, at a shape whose element count is a multiple neither of
+# 4 nor of a warp's chunk; timed at severity 3 (the main path's) and 1 (the
+# most terms)
+K2_ODD_SHAPE = (7, 33, 31, 3)
+K2_TIMED_SEVERITIES = (3, 1)
+# K5 held exactly at every severity (m 1..4, 1..3 rounds), at the odd shape
+# (H W not a multiple of 4: Philox groups straddle images) and at batch 7 of
+# 32x32, both on a base 4 bytes off a 16-byte boundary
+K5_ODD_BATCH = 7
 # K5 (pure selection) and K6 (the plain version's operations in its order,
 # no contraction) are held to their plain versions exactly; so are K5p and
 # K6p, to theirs and to K5 and K6 (the same draws, taps and order), and the
@@ -450,6 +466,16 @@ def check_k7(dev, gen, bound) -> dict:
     return shapes
 
 
+def misaligned(t):
+    """A copy of ``t`` on a base 4 bytes off a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def check_k6p_small_batch(x) -> None:
     """K6p at K6P_SMALL_BATCH images, fewer groups than its grid has
     blocks, on a base 4 bytes off a 16-byte boundary: equal to K6 and to
@@ -460,9 +486,7 @@ def check_k6p_small_batch(x) -> None:
     from fav_tpu_torch.ops import corruptions_cuda as kern
 
     b = K6P_SMALL_BATCH
-    buf = torch.empty(x[:b].numel() + 1, dtype=x.dtype, device=x.device)
-    xb = buf[1:].view(x[:b].shape)
-    xb.copy_(x[:b])
+    xb = misaligned(x[:b])
     groups = {}
     for level in range(1, len(plain.ELASTIC_SEV) + 1):
         fy, fx = plain.elastic_fields(SEED + 14, xb, level, uniform=kern.uniform)
@@ -478,6 +502,115 @@ def check_k6p_small_batch(x) -> None:
         groups[level] = (g, geo.blocks)
     phase("kernels", f"K6p elastic_warp_packed at batch {b} (base 4 bytes off 16): equal to K6 and its plain version "
                      f"at severities 1-5 (G, blocks: {groups})")
+
+
+def shot_work(x, seed: int, severity: int) -> tuple[float, float, float]:
+    """K2's work on ``x`` at ``severity`` with draw 0 of ``seed``: the terms
+    beyond the first that this run's data needs (min(count, k_max - 1) an
+    element), and the bound's bytes and operations."""
+    import torch
+
+    from fav_tpu_torch.ops import corruptions as plain
+    from fav_tpu_torch.ops.random import uniform01
+
+    n = x.numel()
+    c = plain.sev_param(plain.SHOT_C, severity)
+    k_max = plain.shot_k_max(severity)
+    counts = plain.poisson_inverse_cdf(x * c, uniform01(seed, n, 0, device=x.device).reshape(x.shape), k_max)
+    terms = float(torch.clamp(counts, max=k_max - 1).sum())
+    return terms, 2 * n * 4 + 4 * k_max, OPS_PER_ELEMENT["shot_noise"] * n + SHOT_OPS_PER_TERM * terms
+
+
+def shot_library(x, got, severity: int) -> tuple[float, str]:
+    """``torch.poisson`` on lam = x c, made before timing: the draw only,
+    without K2's scale and clip, and from another stream, so a yardstick of
+    time; the note sets the mean of clip(draw / c) beside the kernel's."""
+    import torch
+
+    from fav_tpu_torch.ops import corruptions as plain
+
+    c = plain.sev_param(plain.SHOT_C, severity)
+    lam = x * c
+    ms = time_ms(lambda: torch.poisson(lam), reps=20)
+    mean = float(torch.clamp(torch.poisson(lam) / c, 0.0, 1.0).double().mean())
+    return ms, (f"torch.poisson(x c) {ms:.4f} ms, the draw only (another stream: mean of clip(draw / c) "
+                f"{mean:.6f} against the kernel's {float(got.double().mean()):.6f})")
+
+
+def check_k2(x, bound) -> dict:
+    """K2 against its plain version at every severity on ``x`` and, on a
+    base 4 bytes off 16, at K2_ODD_SHAPE: at most K2_MAX_TIE_FRACTION of the
+    elements differ, by one count at most. Timed at the severities of
+    K2_TIMED_SEVERITIES other than 3, which the kernels phase times."""
+    import torch
+
+    from fav_tpu_torch.ops import corruptions as plain
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+
+    seed = SEED + 2  # the kernels phase's seed for K2
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 20)
+    odd = misaligned(torch.rand(K2_ODD_SHAPE, generator=gen, device=x.device))
+    out = {}
+    for level in range(1, len(plain.SHOT_C) + 1):
+        c = plain.sev_param(plain.SHOT_C, level)
+        rec = {}
+        for label, xx in (("batch", x), ("odd", odd)):
+            got = kern.shot_noise(seed, xx, level)
+            diff = (got - plain.shot_noise_plain(seed, xx, level)).abs()
+            torch.cuda.synchronize()
+            frac = float((diff > 0).sum()) / xx.numel()
+            err = float(diff.max())
+            check(frac <= K2_MAX_TIE_FRACTION and err <= 1.0 / c + 1e-6,
+                  f"shot_noise severity {level} at {tuple(xx.shape)}: {frac:.2e} of elements differ (limit "
+                  f"{K2_MAX_TIE_FRACTION}), max diff {err} (one count: {1.0 / c})")
+            rec[label] = {"differing_fraction": frac, "max_abs_err": err}
+        if level in K2_TIMED_SEVERITIES and level != 3:
+            ms = time_ms(lambda: kern.shot_noise(seed, x, level), reps=20)
+            plain_ms = time_ms(lambda: plain.shot_noise_plain(seed, x, level), reps=3, warmup=1)
+            terms, bytes_moved, ops = shot_work(x, seed, level)
+            bound_ms, by = bound(bytes_moved, ops)
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, mean_terms=1 + terms / x.numel())
+            phase("kernels", f"K2 shot_noise severity {level} (k_max {plain.shot_k_max(level)}): kernel {ms:.4f} ms, "
+                             f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}: {ops / 1e9:.3f} Gop), "
+                             f"{ms / bound_ms:.2f}x the bound, mean terms per element {1 + terms / x.numel():.3f}")
+        out[f"severity={level}"] = rec
+    phase("kernels", f"K2 shot_noise at severities 1-5, seed {seed}: differing fractions "
+                     + ", ".join(f"{r['batch']['differing_fraction']:.3e}" for r in out.values())
+                     + f" at {tuple(x.shape)} and "
+                     + ", ".join(f"{r['odd']['differing_fraction']:.3e}" for r in out.values())
+                     + f" at {K2_ODD_SHAPE} (base 4 bytes off 16), each within {K2_MAX_TIE_FRACTION} and one count")
+    return out
+
+
+def check_k5(x, seed: int) -> None:
+    """K5 exact to its plain version at every severity on ``x`` and, on a
+    base 4 bytes off 16, at K2_ODD_SHAPE and at K5_ODD_BATCH images of
+    ``x``; K5p exact to K5 at every severity on ``x``."""
+    import torch
+
+    from fav_tpu_torch.ops import corruptions as plain
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 21)
+    shapes = (x, misaligned(torch.rand(K2_ODD_SHAPE, generator=gen, device=x.device)), misaligned(x[:K5_ODD_BATCH]))
+    for level in range(1, len(plain.GLASS_SEV) + 1):
+        _, m, iters = plain.sev_param(plain.GLASS_SEV, level)
+        for xx in shapes:
+            got = kern.glass_resample(seed, xx, m, iters)
+            want = plain.glass_resample_plain(seed, xx, m, iters)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"glass_resample severity {level} (m={m}, iters={iters}) at "
+                                          f"{tuple(xx.shape)}: max diff {float((got - want).abs().max())}, "
+                                          f"expected exact")
+        got_p = kern.glass_resample(seed, x, m, iters, packed=True)
+        k5 = kern.glass_resample(seed, x, m, iters)
+        torch.cuda.synchronize()
+        check(torch.equal(got_p, k5), f"glass_resample_packed severity {level}: differs from K5")
+    phase("kernels", f"K5 glass_resample equal to its plain version at severities 1-5 (m, iters: "
+                     f"{[plain.sev_param(plain.GLASS_SEV, v)[1:] for v in range(1, 6)]}) at {tuple(x.shape)}, and "
+                     f"at {K2_ODD_SHAPE} and {(K5_ODD_BATCH, *x.shape[1:])} on a base 4 bytes off 16 ("
+                     f"{kern.glass_shared_bytes(*x.shape[1:], 6)} B shared a block at severity 3); K5p equal to K5 "
+                     f"at severities 1-5")
 
 
 def check_k8(x, bound) -> dict:
@@ -1089,19 +1222,19 @@ def main(argv: list[str]) -> int:
         plain_ms = time_ms(lambda: plain_fn(seed, x, sev), reps=3, warmup=1)
         bytes_moved = 2 * n * 4
         ops = OPS_PER_ELEMENT[name] * n
+        library_ms = None
         if name == "shot_noise":
-            # terms beyond the first that this run's data needs: min(count, k_max - 1)
-            k_max = plain.shot_k_max(sev)
-            counts = plain.poisson_inverse_cdf(x * c, uniform01(seed, n, 0, device=dev).reshape(x.shape), k_max)
-            terms = float(torch.clamp(counts, max=k_max - 1).sum())
-            ops += SHOT_OPS_PER_TERM * terms
-            bytes_moved += 4 * k_max
-            extra += f", mean terms per element {1 + terms / n:.3f} of {k_max}"
+            terms, bytes_k, ops_k = shot_work(x, seed, sev)
+            bytes_moved, ops = bytes_k, ops_k
+            extra += f" at seed {seed}, mean terms per element {1 + terms / n:.3f} of {plain.shot_k_max(sev)}"
+            library_ms, lib_note = shot_library(x, got, sev)
+            extra += f"; {lib_note}"
         t_bytes, t_ops = bytes_moved / bw * 1e3, ops / peak_ops * 1e3
         bound_ms = max(t_bytes, t_ops)
         report[name] = {
             "kid": kid, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": bytes_moved, "ops": ops,
+            "library_ms": library_ms,
         }
         phase("kernels", f"{kid} {name}: max|kernel-plain| {err:.3e} ({extra}); kernel {ms:.4f} ms, "
                          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({report[name]['bound_by']}: "
@@ -1115,6 +1248,9 @@ def main(argv: list[str]) -> int:
         t_bytes, t_ops = bytes_moved / bw * 1e3, ops / peak_ops * 1e3
         return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
+    # K2 across its range, timed at severity 1 as well
+    k2_report = check_k2(x, bound)
+
     # the Philox helper against uniform01, word for word
     seed = SEED + 11
     got = kern.uniform(seed, (n,), 1, dev)
@@ -1123,14 +1259,21 @@ def main(argv: list[str]) -> int:
     ms = time_ms(lambda: kern.uniform(seed, (n,), 1, dev), reps=20)
     plain_ms = time_ms(lambda: uniform01(seed, n, 1, device=dev), reps=3, warmup=1)
     bound_ms, by = bound(4 * n, PHILOX_UNIFORM_OPS * n)
+    # the library yardstick: torch.rand draws the same law from another stream
+    library_ms = time_ms(lambda: torch.rand(n, device=dev), reps=20)
+    lib_mean = float(torch.rand(n, device=dev).double().mean())
     report["philox_uniform"] = {"kid": "helper", "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                                "bound_ms": bound_ms, "bound_by": by}
+                                "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
     phase("kernels", f"philox_uniform helper: bit-equal to uniform01 over {n} draws; kernel {ms:.4f} ms, "
-                     f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})")
+                     f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}); torch.rand {library_ms:.4f} ms "
+                     f"(another stream: mean {lib_mean:.6f} against the kernel's {float(got.double().mean()):.6f})")
 
-    # K5: the glass resample cascade, severity 3 (m = 2, 3 rounds)
-    _, m, iters = plain.sev_param(plain.GLASS_SEV, sev)
+    # K5: the glass resample cascade, exact at every severity and on odd
+    # shapes; K5p exact to K5 at every severity; timed at severity 3 (m = 2,
+    # 3 rounds)
     seed = SEED + 12
+    check_k5(x, seed)
+    _, m, iters = plain.sev_param(plain.GLASS_SEV, sev)
     got = kern.glass_resample(seed, x, m, iters)
     want = plain.glass_resample_plain(seed, x, m, iters)
     torch.cuda.synchronize()
@@ -1329,7 +1472,10 @@ def main(argv: list[str]) -> int:
         r = report[name]
         entries.append({"name": f"{r['kid']} {name}", "route": "cuda", "source": f"{csrc}/{src}",
                         "replaces": replaces, "launches": launches, **{k: r[k] for k in keys},
-                        "library_ms": None})
+                        "library_ms": r["library_ms"]})
+        if name == "shot_noise":
+            entries[-1]["library_note"] = "torch.poisson(x c), the draw only (no scale or clip), another stream"
+            entries[-1]["variants"] = k2_report
     # K4 runs twice per megastep, once as each cell: its numbers are per launch,
     # averaged over the two, and each cell's own stand under "variants".
     b4, c4 = report["brightness"], report["contrast"]
@@ -1387,7 +1533,7 @@ def main(argv: list[str]) -> int:
     r = report["philox_uniform"]
     helpers = [{"name": "philox_uniform", "route": "cuda", "source": f"{csrc}/corruptions.cu",
                 "replaces": None, "launches": counts["philox_uniform"], **{k: r[k] for k in keys},
-                "library_ms": None,
+                "library_ms": r["library_ms"], "library_note": "torch.rand(n), another stream",
                 "launches_by_path": {path: c["philox_uniform"] for path, c in paths.items()}}]
     print(json.dumps({"kernels": entries, "helpers": helpers, "megastep_ms": step_ms, "img_per_s": img_s,
                       "family_ms": family_ms, "forward_ms": forward_ms,

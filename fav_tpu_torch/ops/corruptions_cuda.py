@@ -58,7 +58,10 @@ __all__ = [
     "SHARED_MEMORY_LIMIT",
     "OPT_IN_SHARED_MEMORY_LIMIT",
     "PackedWarpGeometry",
+    "ShotGeometry",
     "elastic_packed_geometry",
+    "glass_shared_bytes",
+    "shot_geometry",
     "multiprocessors",
     "launch_counts",
     "reset_launch_counts",
@@ -95,6 +98,40 @@ OPT_IN_SHARED_MEMORY_LIMIT = 227 * 1024
 SM_SHARED_MEMORY = 228 * 1024
 # K6p's persistent grid: up to two blocks an SM.
 K6P_BLOCKS_PER_SM = 2
+# K2's block and chunk (kShotWarps, kShotChunk, kShotTerms in
+# csrc/corruptions.cu): warps a block, elements a warp stages and queues
+# at once, and terms a lane runs between two hand-outs of the queue.
+SHOT_WARPS = 8
+SHOT_CHUNK = 512
+SHOT_TERMS = 4
+
+
+class ShotGeometry(NamedTuple):
+    """K2's launch: ``blocks`` blocks of ``SHOT_WARPS`` warps, each with
+    ``shared_bytes`` of shared memory (the launcher derives the same)."""
+    shared_bytes: int
+    blocks: int
+
+
+def shot_geometry(n: int, k_max: int) -> ShotGeometry:
+    """K2's grid for ``n`` elements and ``k_max`` terms: a chunk of
+    ``SHOT_CHUNK`` elements a warp. A block holds the log k table
+    (k_max + SHOT_TERMS floats) and the result table (k_max + 1 floats),
+    each rounded up to 4 floats, and u, lam and log lam of each warp's
+    chunk. Raises where a block does not fit."""
+    if n < 1 or k_max < 1:
+        raise ValueError(f"shot_noise: {n} elements and {k_max} terms")
+    tables = (k_max + SHOT_TERMS + 3) // 4 * 4 + (k_max + 1 + 3) // 4 * 4
+    shared = 4 * (tables + SHOT_WARPS * 3 * SHOT_CHUNK)
+    _shared_memory("shot_noise", shared, OPT_IN_SHARED_MEMORY_LIMIT, f"a block's tables for k_max={k_max} and chunks")
+    return ShotGeometry(shared, -(-n // (SHOT_WARPS * SHOT_CHUNK)))
+
+
+def glass_shared_bytes(h: int, w: int, c: int, passes: int) -> int:
+    """K5's shared memory a block (csrc/glass.cu, one image): a 16-byte
+    barrier, the input and output tiles of round4(H W C + 3) floats each
+    (an image at its 16-byte phase) and one code byte a pixel a pass."""
+    return 16 + 2 * ((h * w * c + 6) // 4 * 4) * 4 + passes * h * w
 
 
 class PackedWarpGeometry(NamedTuple):
@@ -169,7 +206,7 @@ KERNELS = {
                                  [_P, _P, _I64, _U32, _U32, _F32, _P]),
     # K2, replaces _shot_kernel
     "shot_noise": CudaKernel("corruptions", "fav_shot_noise",
-                             [_P, _P, _I64, _U32, _U32, _F32, _I32, _P, _P]),
+                             [_P, _P, _I64, _U32, _U32, _F32, _I32, _P, _I32, _P]),
     # K3, replaces _impulse_kernel
     "impulse_noise": CudaKernel("corruptions", "fav_impulse_noise",
                                 [_P, _P, _I64, _U32, _U32, _F32, _F32, _P]),
@@ -269,10 +306,11 @@ def shot_noise(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
     c = plain.sev_param(plain.SHOT_C, severity)
     k_max = plain.shot_k_max(severity)
     log_k = _log_k_table(x.device, k_max)
+    geo = shot_geometry(x.numel(), k_max)
     out = torch.empty_like(x)
     KERNELS["shot_noise"].launch(
         x.device, x.data_ptr(), out.data_ptr(), x.numel(), *seed_key(seed), c, k_max,
-        log_k.data_ptr())
+        log_k.data_ptr(), geo.blocks)
     return out
 
 
@@ -364,7 +402,7 @@ def glass_resample(seed: int, x: torch.Tensor, m: int, iters: int, packed: bool 
         KERNELS["glass_resample_packed"].launch(x.device, x.data_ptr(), out.data_ptr(), b, g, h, w, c, int(m),
                                                 passes, *seed_key(seed))
         return out
-    _shared_memory("glass_resample", 2 * h * w * c * 4 + passes * h * w, SHARED_MEMORY_LIMIT,
+    _shared_memory("glass_resample", glass_shared_bytes(h, w, c, passes), SHARED_MEMORY_LIMIT,
                    f"a {h}x{w}x{c} image")
     KERNELS["glass_resample"].launch(x.device, x.data_ptr(), out.data_ptr(), b, h, w, c, int(m), passes,
                                      *seed_key(seed))

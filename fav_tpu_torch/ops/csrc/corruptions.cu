@@ -29,6 +29,7 @@ using fav::draw_words;
 using fav::word;
 
 constexpr int kThreads = 256;
+constexpr int kOptInLimit = 227 * 1024;  // the shared memory a Hopper block can opt in to
 
 __device__ __forceinline__ float clip01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
 
@@ -109,41 +110,159 @@ __global__ void impulse_kernel(const float* __restrict__ x, float* __restrict__ 
 
 // ── K2: shot (Poisson) noise ──────────────────────────────────────────────
 // Replaces corruptions_pallas.py:_shot_kernel (:107).
-// Bound: operations or bytes, by the data. The TPU kernel runs all k_max - 1
-// = 53 terms of the log-space CDF for every pixel (at severity 3); the
-// partial sums only grow, so once u <= cdf_k no later term can add to the
-// count, and this kernel stops there: about lambda + 1 = x c + 1 terms (7 on
-// average for uniform x at c = 12), one expf each, instead of 53. The count
-// is the same as the full loop's. The log k constants come from the wrapper
-// (log_k[k] = float32(log k)) so kernel and plain version subtract the same
-// values.
-__global__ void shot_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
-                            uint32_t k0, uint32_t k1, float c, int k_max,
-                            const float* __restrict__ log_k, bool vec) {
-  const long long groups = (n + 3) / 4;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups;
-       g += stride) {
-    float v[4];
-    const int m = load_group(x, n, g, vec, v);
-    const uint4 w = draw_words(g, 0u, k0, k1);
+//
+// What it computes: for each element, lam = x c and the uniform u of draw 0;
+// the count is the number of log-space CDF partial sums cdf_k, k < k_max,
+// that u exceeds (cdf_0 = exp(-lam); log p_k = (log p_{k-1} + log lam) -
+// log k; cdf_k = cdf_{k-1} + exp(log p_k)), and the output clip(count / c).
+// The log k constants come from the wrapper (log_k[k] = float32(log k)), so
+// kernel and plain version subtract the same values, and every sum rounds
+// on its own (__f*_rn, precise expf/logf). The TPU kernel runs all k_max -
+// 1 terms (53 at severity 3); the partial sums only grow, so once u <=
+// cdf_k no later term adds to the count, and this kernel stops there:
+// count + 1 terms, about lambda + 1 (7 on average for uniform x at c = 12),
+// the function's own minimum.
+//
+// Bound: operations or bytes, by the data (4 bytes read and 4 written an
+// element; a Philox quarter, logf and expf to start, and an expf and three
+// sums a term).
+//
+// Design: a warp-level work queue, so that a warp's cost is the sum of its
+// elements' terms over 32 and not the sum over its elements of the slowest
+// of 32 lanes. Each warp takes one chunk of kShotChunk elements (the
+// wrapper's shot_geometry launches a block per kShotWarps chunks) and
+//   1. stages the chunk in shared memory: its lanes read x as float4 rows,
+//      make the chunk's Philox draws four elements a call, and store u, lam
+//      and log lam, all coalesced and without divergence;
+//   2. runs the queue: each lane holds one element's chain and runs
+//      kShotTerms terms of it between hand-outs; a lane whose chain has
+//      ended writes its result into the chunk's tile, and __ballot_sync /
+//      __popc hand the ended lanes the chunk's next elements in lane order;
+//   3. writes the chunk's results back as float4 rows.
+// A lane reads the log k of its block's kShotTerms terms from a shared
+// table as one vector (its term index is a multiple of kShotTerms at a hand-
+// out); past k_max the table holds -inf: term k_max is then +inf, its
+// partial sum +inf, and no u exceeds it, so the chain ends there with count
+// k_max without a bound test, and the count is the number of terms whose
+// sum u exceeded. The results for every count, clip(count / c), are a
+// shared table too, made once a block.
+constexpr int kShotWarps = 8;                   // warps a block
+constexpr int kShotPerLane = 16;                // elements a lane's share of a chunk
+constexpr int kShotChunk = 32 * kShotPerLane;   // elements a warp stages at once
+constexpr int kShotTerms = 4;                   // terms a lane runs between hand-outs
+static_assert(kShotTerms % 4 == 0, "a block of terms reads its log k as float4s");
+
+// Floats of a block's shared memory: the log k table (entry k holds
+// log(k + 1), k < k_max + kShotTerms) and the result table (k_max + 1),
+// each rounded up to 4 floats; then u, lam and log lam of each warp's
+// chunk.
+__host__ __device__ constexpr int shot_table_floats(int k_max) {
+  return ((k_max + kShotTerms + 3) & ~3) + ((k_max + 1 + 3) & ~3);
+}
+constexpr int kShotWarpFloats = 3 * kShotChunk;
+
+__global__ void __launch_bounds__(kShotWarps * 32)
+    shot_kernel(const float* __restrict__ x, float* __restrict__ out, long long n, uint32_t k0,
+                uint32_t k1, float c, int k_max, const float* __restrict__ log_k, bool vec) {
+  extern __shared__ __align__(16) float shot_smem[];
+  float* table = shot_smem;  // log(k + 1), k + 1 < k_max; -inf beyond
+  float* result = table + ((k_max + kShotTerms + 3) & ~3);  // clip(count / c), count <= k_max
+  for (int k = threadIdx.x; k < k_max + kShotTerms; k += blockDim.x)
+    table[k] = k + 1 < k_max ? log_k[k + 1] : -__int_as_float(0x7f800000);  // -inf
+  for (int k = threadIdx.x; k <= k_max; k += blockDim.x)
+    result[k] = clip01(__fdiv_rn(static_cast<float>(k), c));
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;  // the lanes before this one
+  float* su = shot_smem + shot_table_floats(k_max) + (threadIdx.x >> 5) * kShotWarpFloats;
+  float* slam = su + kShotChunk;  // lam, then each element's result
+  float* slog = slam + kShotChunk;
+  const long long chunk = static_cast<long long>(blockIdx.x) * kShotWarps + (threadIdx.x >> 5);
+  if (chunk * kShotChunk < n) {
+    const long long g0 = chunk * (kShotChunk / 4);
+    const int m = static_cast<int>(n - 4 * g0 < kShotChunk ? n - 4 * g0 : kShotChunk);
+
+    // 1. stage: lane l takes the chunk's groups l, l + 32, ...
+    for (int q = lane; 4 * q < m; q += 32) {
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      load_group(x, n, g0 + q, vec, v);
+      const uint4 wd = draw_words(g0 + q, 0u, k0, k1);
+      float u[4], lam[4], log_lam[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float u = bits_to_uniform(word(w, j));
-      const float lam = __fmul_rn(v[j], c);
-      const float log_lam = logf(fmaxf(lam, 1e-30f));
-      float log_term = -lam;
-      float cdf = expf(log_term);
-      float count = 0.0f;
-      for (int k = 1; k < k_max && u > cdf; ++k) {
-        count = __fadd_rn(count, 1.0f);
-        log_term = __fsub_rn(__fadd_rn(log_term, log_lam), log_k[k]);
-        cdf = __fadd_rn(cdf, expf(log_term));
+      for (int j = 0; j < 4; ++j) {
+        u[j] = bits_to_uniform(word(wd, j));
+        lam[j] = __fmul_rn(v[j], c);
+        log_lam[j] = logf(fmaxf(lam[j], 1e-30f));
       }
-      if (u > cdf) count = __fadd_rn(count, 1.0f);
-      v[j] = clip01(__fdiv_rn(count, c));
+      reinterpret_cast<float4*>(su)[q] = make_float4(u[0], u[1], u[2], u[3]);
+      reinterpret_cast<float4*>(slam)[q] = make_float4(lam[0], lam[1], lam[2], lam[3]);
+      reinterpret_cast<float4*>(slog)[q] = make_float4(log_lam[0], log_lam[1], log_lam[2], log_lam[3]);
     }
-    store_group(out, g, vec, m, v);
+    __syncwarp();
+
+    // 2. the queue: element e's chain is (log_term, cdf) with term index k
+    // next; a fresh chain has log_term = -lam, cdf = 0 (0 + exp(-lam) is
+    // exp(-lam) exactly) and k = 0. A chain runs on while u exceeds its
+    // last partial sum, so all its terms before the last block counted,
+    // and its count is k less the block's terms whose sum u did not exceed.
+    int e = lane;
+    bool live = e < m;
+    float u = 0.0f, log_lam = 0.0f, log_term = 0.0f;
+    float cdf[kShotTerms] = {};  // the partial sums of the last block
+    int k = 0;
+    if (live) {
+      u = su[e];
+      log_term = -slam[e];
+      log_lam = slog[e];
+    }
+    for (int next = 32; next < m + 32;) {  // next - 32 chains have ended
+      if (live) {
+        float lk[kShotTerms];  // log k of terms k + 1 .. k + kShotTerms
+#pragma unroll
+        for (int t = 0; t < kShotTerms; t += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(table + k + t);
+          lk[t] = v.x;
+          lk[t + 1] = v.y;
+          lk[t + 2] = v.z;
+          lk[t + 3] = v.w;
+        }
+        float sum = cdf[kShotTerms - 1];
+#pragma unroll
+        for (int t = 0; t < kShotTerms; ++t) {
+          sum = __fadd_rn(sum, expf(log_term));
+          cdf[t] = sum;
+          log_term = __fsub_rn(__fadd_rn(log_term, log_lam), lk[t]);
+        }
+        k += kShotTerms;
+      }
+      const bool ended = live && !(u > cdf[kShotTerms - 1]);
+      const unsigned mask = __ballot_sync(0xffffffffu, ended);
+      if (ended) {
+        int count = k;
+#pragma unroll
+        for (int t = 0; t < kShotTerms; ++t) count -= !(u > cdf[t]);
+        slam[e] = result[count];
+        e = next + __popc(mask & lower);
+        live = e < m;
+        if (live) {
+          u = su[e];
+          log_term = -slam[e];
+          log_lam = slog[e];
+          cdf[kShotTerms - 1] = 0.0f;
+          k = 0;
+        }
+      }
+      next += __popc(mask);
+    }
+    __syncwarp();
+
+    // 3. write back
+    for (int q = lane; 4 * q < m; q += 32) {
+      const float4 r = reinterpret_cast<const float4*>(slam)[q];
+      const float v[4] = {r.x, r.y, r.z, r.w};
+      store_group(out, g0 + q, vec, m - 4 * q < 4 ? m - 4 * q : 4, v);
+    }
   }
 }
 
@@ -314,10 +433,22 @@ int fav_impulse_noise(const float* x, float* out, long long n, uint32_t seed_lo,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2 on `blocks` blocks of kShotWarps warps, a chunk a warp (the wrapper's
+// shot_geometry), each with the block's tables and a chunk's staging area a
+// warp in shared memory; above 48 KB the launcher opts the kernel in. Too
+// few blocks for n, or shared memory past the 227 KB a Hopper block can
+// have, returns cudaErrorInvalidValue.
 int fav_shot_noise(const float* x, float* out, long long n, uint32_t seed_lo, uint32_t seed_hi,
-                   float c, int k_max, const float* log_k, void* stream) {
+                   float c, int k_max, const float* log_k, int blocks, void* stream) {
   if (n <= 0) return 0;
-  shot_kernel<<<elementwise_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long smem = 4LL * (shot_table_floats(k_max) + kShotWarps * kShotWarpFloats);
+  const long long chunks = (n + kShotChunk - 1) / kShotChunk;
+  if (k_max < 1 || static_cast<long long>(blocks) * kShotWarps < chunks || smem > kOptInLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(shot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  shot_kernel<<<blocks, kShotWarps * 32, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       x, out, n, seed_lo, seed_hi, c, k_max, log_k, aligned16(x, out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,7 +47,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
+
+using fav::bulk_load;
+using fav::bulk_store;
+using fav::mbar_init;
+using fav::mbar_wait;
 
 constexpr int kThreads = 256;
 
@@ -163,87 +170,7 @@ __global__ void elastic_warp_kernel(const float* __restrict__ x, const float* __
 // pixels lie 12 bytes apart). Each tile sits at its group's 16-byte phase
 // in device memory, so the bulk copies' ends line up at any base address;
 // the at most three floats before and after a 16-byte-aligned body are
-// copied by plain loads and stores.
-__device__ __forceinline__ uint32_t shared_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(shared_addr(bar)) : "memory");
-}
-
-// Waits for the completion of phase `parity` of the barrier.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(shared_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// Starts the copy of a group's `len` floats from src into buf + phase(src),
-// and returns that phase. Thread 0 arms the barrier with the body's bytes
-// and issues the bulk copy; threads 1-6 copy the head and tail. The caller
-// has synchronised the block since the buffer was last read.
-__device__ __forceinline__ int load_group(float* buf, uint64_t* bar, const float* src, int len) {
-  const int ph = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
-  const int head = min((4 - ph) & 3, len);
-  const int body = ((len - head) >> 2) << 2;
-  const int tail = len - head - body;
-  float* tile = buf + ph;
-  const int t = threadIdx.x;
-  if (t == 0) {
-    // the generic proxy's reads of this buffer come before the async proxy's writes
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(shared_addr(bar)),
-                 "r"(body * 4)
-                 : "memory");
-    if (body > 0) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-              shared_addr(tile + head)),
-          "l"(src + head), "r"(body * 4), "r"(shared_addr(bar))
-          : "memory");
-    }
-  } else if (t <= head) {
-    tile[t - 1] = src[t - 1];
-  } else if (t <= head + tail) {
-    const int e = body + t - 1;  // head + body + (t - 1 - head)
-    tile[e] = src[e];
-  }
-  return ph;
-}
-
-// Starts the write of a group's `len` output floats, held at buf +
-// phase(dst), to dst: every thread has fenced its writes to the buffer and
-// the block has synchronised. Thread 0 issues one bulk copy of the
-// 16-byte-aligned body and commits it; threads 1-6 store the head and tail.
-__device__ __forceinline__ void store_group(const float* buf, float* dst, int len) {
-  const int ph = static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
-  const int head = min((4 - ph) & 3, len);
-  const int body = ((len - head) >> 2) << 2;
-  const int tail = len - head - body;
-  const float* tile = buf + ph;
-  const int t = threadIdx.x;
-  if (t == 0) {
-    if (body > 0) {
-      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst + head),
-                   "r"(shared_addr(tile + head)), "r"(body * 4)
-                   : "memory");
-    }
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  } else if (t <= head) {
-    dst[t - 1] = tile[t - 1];
-  } else if (t <= head + tail) {
-    const int e = body + t - 1;
-    dst[e] = tile[e];
-  }
-}
-
+// copied by plain loads and stores (bulk_copy.cuh, shared with K5).
 constexpr int kChunk = 8;  // K6p: pixels a thread loads the coordinates of at once
 constexpr int kPackedThreads = 512;  // K6p: threads a block
 constexpr int kOptInLimit = 227 * 1024;  // the shared memory a Hopper block can opt in to
@@ -263,12 +190,11 @@ __global__ void elastic_warp_packed_kernel(const float* __restrict__ x, const fl
   if (threadIdx.x == 0) {
     mbar_init(&bars[0]);
     mbar_init(&bars[1]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   int k = blockIdx.x;  // the wrapper launches at most one block a group
-  int ph = load_group(stages, &bars[0], x + static_cast<long long>(k) * len, len);
+  int ph = bulk_load(stages, &bars[0], x + static_cast<long long>(k) * len, len);
   __syncthreads();  // the first group's head and tail
 
   // thread t's first pixel of a group (image s0, row i0, column j0) and the
@@ -288,12 +214,12 @@ __global__ void elastic_warp_packed_kernel(const float* __restrict__ x, const fl
     const int next = k + gridDim.x;
     int ph_next = 0;
     if (next < groups)
-      ph_next = load_group(stages + (stage ^ 1) * stage_floats, &bars[stage ^ 1],
+      ph_next = bulk_load(stages + (stage ^ 1) * stage_floats, &bars[stage ^ 1],
                            x + static_cast<long long>(next) * len, len);
     mbar_wait(&bars[stage], (it >> 1) & 1);
     if (it > 0) {
       // the previous group's bulk write has read the output stage
-      if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      if (t == 0) fav::bulk_store_wait_read();
       __syncthreads();
     }
     const float* tile = stages + stage * stage_floats + ph;
@@ -339,13 +265,13 @@ __global__ void elastic_warp_packed_kernel(const float* __restrict__ x, const fl
       }
     }
     // this thread's writes to the output stage, before the async proxy reads them
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fav::fence_shared_for_bulk();
     __syncthreads();  // every thread is done with this input stage and the output stage
-    store_group(out_stage, dst, len);
+    bulk_store(out_stage, dst, len);
     ph = ph_next;
   }
   // the last bulk write has finished before the block's shared memory goes
-  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  if (threadIdx.x == 0) fav::bulk_store_wait_all();
 }
 
 }  // namespace

@@ -25,84 +25,119 @@
 // pass: some 30 operations a pixel a pass, far under the card's ratio of
 // operations to bytes.
 //
-// Design: one block per image, so each pass's neighbours are in the block.
-// The image is read into shared memory as it lies (NHWC, one coalesced
-// pass), the codes of all passes are drawn into shared memory (one byte a
-// pixel a pass: the uniforms never reach device memory), and the passes
-// ping-pong between two shared copies with a block barrier between them;
-// the last copy is written back coalesced. The TPU kernel's planar
-// (nb, C, H, W) blocks served the TPU's lane layout; here the channels stay
-// interleaved, so global traffic is a straight copy and a pass reads C
-// neighbouring words a pixel (stride C across a warp: no bank conflicts for
-// odd C).
+// Design: the cascade resolved into one gather. Pass p's output at (i, j)
+// comes from pass p - 1's output at one position, which depends only on
+// pass p's code at (i, j); so the final source of a pixel is found by
+// walking the passes backwards through the codes,
+//
+//   (i, j) = the output pixel
+//   for p = passes - 1 down to 0:
+//     column pass: j = clamp(j + code_p[i, j] - m)
+//     row pass:    i = clamp(i + code_p[i, j] - m)
+//   out[b, i0, j0, :] = x[b, i, j, :]
+//
+// and each channel moves once, not once a pass. Still pure selection, so
+// still bit-equal to the plain version. One block per image: thread 0
+// starts a 1-D bulk copy (cp.async.bulk, bulk_copy.cuh) of the image into
+// shared memory, at its 16-byte phase so any base address works; while it
+// flies the block draws the codes of every pass into shared memory, one
+// byte a pixel a pass (6 KB at 32x32 and 6 passes), four to a 32-bit store
+// where the image's pixels fill whole Philox groups; the block waits once,
+// each thread chases its pixels (row and column found once a pixel, no
+// division a pass) and gathers them into an output tile, and one bulk copy
+// writes the tile back, so the stores cover whole sectors although a pixel
+// is 12 bytes. No block barrier between passes and no second copy of the
+// image; the shared traffic is the image read once and written once. What
+// is left is the Philox work (passes x H W / 4 calls an image).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // K5: threads a block (one image)
 constexpr int kPackedThreads = 512;  // K5p: one 120 KB block fills an SM
 
 // The code byte of every pass of pixels first .. first + n - 1 (element
 // indices of each draw) into codes[pass * n + q], q = pixel - first. The
-// groups of four that cover the range may reach into neighbouring images.
+// groups of four that cover the range may reach into neighbouring images;
+// where they do not (first and n multiples of 4), each group's four codes
+// go out as one 32-bit store.
 __device__ __forceinline__ void draw_codes(unsigned char* codes, long long first, int n, int m,
                                            int passes, uint32_t k0, uint32_t k1) {
   const long long g0 = first / 4;
   const int ngroups = static_cast<int>((first + n - 1) / 4 - g0 + 1);
   const float k = static_cast<float>(2 * m + 1);
-  for (int t = threadIdx.x; t < ngroups * passes; t += blockDim.x) {
-    const int pass = t / ngroups;
-    const long long g = g0 + (t - pass * ngroups);
-    const uint4 words = fav::draw_words(g, static_cast<uint32_t>(pass), k0, k1);
+  const bool whole = ((first | n) & 3) == 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    unsigned char* pc = codes + pass * n;
+    for (int t = threadIdx.x; t < ngroups; t += blockDim.x) {
+      const long long g = g0 + t;
+      const uint4 words = fav::draw_words(g, static_cast<uint32_t>(pass), k0, k1);
+      uint32_t packed = 0;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long q = 4 * g + j - first;
-      if (q < 0 || q >= n) continue;
-      const float u = fav::bits_to_uniform(fav::word(words, j));
-      const float code = fminf(floorf(__fmul_rn(u, k)), __fsub_rn(k, 1.0f));
-      codes[pass * n + static_cast<int>(q)] = static_cast<unsigned char>(code);
+      for (int j = 0; j < 4; ++j) {
+        const float u = fav::bits_to_uniform(fav::word(words, j));
+        const uint32_t code = static_cast<uint32_t>(fminf(floorf(__fmul_rn(u, k)), __fsub_rn(k, 1.0f)));
+        packed |= code << (8 * j);
+        const long long q = 4 * g + j - first;
+        if (!whole && q >= 0 && q < n) pc[q] = static_cast<unsigned char>(code);
+      }
+      if (whole) reinterpret_cast<uint32_t*>(pc)[t] = packed;
     }
   }
 }
 
-__global__ void glass_resample_kernel(const float* __restrict__ x, float* __restrict__ out, int h,
-                                      int w, int c, int m, int passes, uint32_t k0, uint32_t k1) {
-  extern __shared__ float smem[];
+// K5: one block per image; shared memory holds the barrier (16 bytes), the
+// input and output tiles (tile_floats = round4(h w c + 3) each) and the
+// codes (passes h w bytes).
+__global__ void __launch_bounds__(kThreads) glass_resample_kernel(const float* __restrict__ x,
+                                                                  float* __restrict__ out, int h, int w,
+                                                                  int c, int m, int passes,
+                                                                  int tile_floats, uint32_t k0,
+                                                                  uint32_t k1) {
+  extern __shared__ __align__(128) unsigned char chase_smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(chase_smem);
+  float* in_tile = reinterpret_cast<float*>(chase_smem + 16);
+  float* out_tile = in_tile + tile_floats;
+  unsigned char* codes = reinterpret_cast<unsigned char*>(out_tile + tile_floats);
   const int hw = h * w;
   const int d = hw * c;
-  float* src = smem;
-  float* dst = smem + d;
-  unsigned char* codes = reinterpret_cast<unsigned char*>(smem + 2 * d);
   const long long img = blockIdx.x;
   const float* xi = x + img * d;
   float* oi = out + img * d;
 
-  for (int e = threadIdx.x; e < d; e += blockDim.x) src[e] = xi[e];
-  // pixel p of this image is element img * hw + p of every draw
-  draw_codes(codes, img * hw, hw, m, passes, k0, k1);
+  if (threadIdx.x == 0) fav::mbar_init(bar);
   __syncthreads();
+  const float* src = in_tile + fav::bulk_load(in_tile, bar, xi, d);
+  // pixel q of this image is element img * hw + q of every draw
+  draw_codes(codes, img * hw, hw, m, passes, k0, k1);
+  fav::mbar_wait(bar, 0);
+  __syncthreads();  // the codes, and the tile's head and tail
 
-  for (int pass = 0; pass < passes; ++pass) {
-    const unsigned char* pc = codes + pass * hw;
-    const bool rows = (pass & 1) == 0;
-    for (int p = threadIdx.x; p < hw; p += blockDim.x) {
-      const int i = p / w;
-      const int j = p - i * w;
-      const int off = static_cast<int>(pc[p]) - m;
-      const int s = rows ? min(max(i + off, 0), h - 1) * w + j : i * w + min(max(j + off, 0), w - 1);
-      for (int ch = 0; ch < c; ++ch) dst[p * c + ch] = src[s * c + ch];
+  float* dst = out_tile + fav::phase16(oi);
+  for (int q = threadIdx.x; q < hw; q += blockDim.x) {
+    int i = q / w;
+    int j = q - i * w;
+    for (int pass = passes - 1; pass >= 0; --pass) {
+      const int off = static_cast<int>(codes[pass * hw + i * w + j]) - m;
+      if (pass & 1) {
+        j = min(max(j + off, 0), w - 1);
+      } else {
+        i = min(max(i + off, 0), h - 1);
+      }
     }
-    __syncthreads();
-    float* t = src;
-    src = dst;
-    dst = t;
+    const float* from = src + (i * w + j) * c;
+    float* to = dst + q * c;
+    for (int ch = 0; ch < c; ++ch) to[ch] = from[ch];
   }
-
-  for (int e = threadIdx.x; e < d; e += blockDim.x) oi[e] = src[e];
+  fav::fence_shared_for_bulk();
+  __syncthreads();
+  fav::bulk_store(out_tile, oi, d);
+  if (threadIdx.x == 0) fav::bulk_store_wait_all();
 }
 
 // K5p: the lane-packed cascade.
@@ -205,16 +240,19 @@ const char* fav_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Shared memory per block: 2 h w c floats and passes h w code bytes; the
-// wrapper keeps it within the 48 KB a block gets without opting in, and m
-// within 0..127 so that each code, 0 .. 2m, fits its byte.
+// K5, one block per image. Shared memory per block: 16 bytes of barrier,
+// two tiles of round4(h w c + 3) floats and passes h w code bytes, which
+// the wrapper (glass_shared_bytes) keeps within the 48 KB a block gets
+// without opting in; m within 0..127 so that each code, 0 .. 2m, fits its
+// byte.
 int fav_glass_resample(const float* x, float* out, int batch, int h, int w, int c, int m,
                        int passes, uint32_t seed_lo, uint32_t seed_hi, void* stream) {
   if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || passes <= 0) return 0;
-  const size_t smem = 2 * static_cast<size_t>(h) * w * c * sizeof(float) +
-                      static_cast<size_t>(passes) * h * w;
-  glass_resample_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, out, h, w, c, m, passes, seed_lo, seed_hi);
+  const long long tile_floats = (static_cast<long long>(h) * w * c + 3 + 3) & ~3LL;
+  const long long smem = 16 + 2 * tile_floats * 4 + static_cast<long long>(passes) * h * w;
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  glass_resample_kernel<<<batch, kThreads, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      x, out, h, w, c, m, passes, static_cast<int>(tile_floats), seed_lo, seed_hi);
   return static_cast<int>(cudaGetLastError());
 }
 
