@@ -27,14 +27,17 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                at severities 1-5 there and at (7, 33, 31, 3) on a base off
                16 bytes, timed at severities 3 and 1; K5 exact at
                severities 1-5 there, at (7, 33, 31, 3) and at (7, 32, 32, 3)
-               on a base off 16 bytes, and K5p exact to K5 at each;
+               on a base off 16 bytes; K5p exact to its plain version and
+               to K5 at severities 1-5 there and at (12, 33, 31, 3) and
+               (6, 32, 32, 3) on a base off 16 bytes;
                K7 (frame statistics and histogram) at the service's
                (32, 240, 320) and the grid's (6144, 32, 32), exact, beside
                ``torch.bincount``'s time for the histogram part, and exact
                at (3, 241, 317), (5, 2, 2) and (1, 1024, 2048) on a base
                off a 16-byte boundary (flat frames and pixels outside
                0..255 in every shape); K8
-               (corrupt-normalize) at (6144, 32, 32, 3), at sigma 0 and 0.18;
+               (corrupt-normalize) at sigma 0 and 0.18 at (6144, 32, 32, 3)
+               and at (7, 33, 31, 3) on a base off 16 bytes;
                K9a and K9b (the AugMix shear passes) at an AugMix view's
                chain batch (768, 32, 32, 3), m = 18 and 22, exact, beside
                ``grid_sample`` computing the same shear; K5p and K6p (the
@@ -191,6 +194,11 @@ K2_TIMED_SEVERITIES = (3, 1)
 # (H W not a multiple of 4: Philox groups straddle images) and at batch 7 of
 # 32x32, both on a base 4 bytes off a 16-byte boundary
 K5_ODD_BATCH = 7
+# K5p held exactly at every severity, on a base 4 bytes off a 16-byte
+# boundary, at 12 images of 33x31 (G = 4; H W = 1023, so Philox groups
+# straddle images inside a group) and at 6 of 32x32 (packed_group lowers
+# G = 4 to 3, a divisor of 6)
+K5P_ODD_SHAPES = ((12, 33, 31, 3), (6, 32, 32, 3))
 # K5 (pure selection) and K6 (the plain version's operations in its order,
 # no contraction) are held to their plain versions exactly; so are K5p and
 # K6p, to theirs and to K5 and K6 (the same draws, taps and order), and the
@@ -585,7 +593,8 @@ def check_k2(x, bound) -> dict:
 def check_k5(x, seed: int) -> None:
     """K5 exact to its plain version at every severity on ``x`` and, on a
     base 4 bytes off 16, at K2_ODD_SHAPE and at K5_ODD_BATCH images of
-    ``x``; K5p exact to K5 at every severity on ``x``."""
+    ``x``; K5p exact to its plain version and to K5 at every severity on
+    ``x`` and, on such a base, at K5P_ODD_SHAPES."""
     import torch
 
     from fav_tpu_torch.ops import corruptions as plain
@@ -593,6 +602,7 @@ def check_k5(x, seed: int) -> None:
 
     gen = torch.Generator(device=x.device).manual_seed(SEED + 21)
     shapes = (x, misaligned(torch.rand(K2_ODD_SHAPE, generator=gen, device=x.device)), misaligned(x[:K5_ODD_BATCH]))
+    packed_shapes = (x, *(misaligned(torch.rand(s, generator=gen, device=x.device)) for s in K5P_ODD_SHAPES))
     for level in range(1, len(plain.GLASS_SEV) + 1):
         _, m, iters = plain.sev_param(plain.GLASS_SEV, level)
         for xx in shapes:
@@ -602,20 +612,30 @@ def check_k5(x, seed: int) -> None:
             check(torch.equal(got, want), f"glass_resample severity {level} (m={m}, iters={iters}) at "
                                           f"{tuple(xx.shape)}: max diff {float((got - want).abs().max())}, "
                                           f"expected exact")
-        got_p = kern.glass_resample(seed, x, m, iters, packed=True)
-        k5 = kern.glass_resample(seed, x, m, iters)
-        torch.cuda.synchronize()
-        check(torch.equal(got_p, k5), f"glass_resample_packed severity {level}: differs from K5")
+        for xx in packed_shapes:
+            got_p = kern.glass_resample(seed, xx, m, iters, packed=True)
+            want_p = plain.glass_resample_packed_plain(seed, xx, m, iters)
+            k5 = kern.glass_resample(seed, xx, m, iters)
+            torch.cuda.synchronize()
+            check(torch.equal(got_p, want_p) and torch.equal(got_p, k5),
+                  f"glass_resample_packed severity {level} at {tuple(xx.shape)} (G="
+                  f"{plain.packed_group(xx.shape[0], xx.shape[2])}): max diff "
+                  f"{float((got_p - want_p).abs().max())} from its plain version, "
+                  f"{float((got_p - k5).abs().max())} from K5, expected exact")
+    groups = [plain.packed_group(s[0], s[2]) for s in (tuple(x.shape), *K5P_ODD_SHAPES)]
     phase("kernels", f"K5 glass_resample equal to its plain version at severities 1-5 (m, iters: "
                      f"{[plain.sev_param(plain.GLASS_SEV, v)[1:] for v in range(1, 6)]}) at {tuple(x.shape)}, and "
                      f"at {K2_ODD_SHAPE} and {(K5_ODD_BATCH, *x.shape[1:])} on a base 4 bytes off 16 ("
-                     f"{kern.glass_shared_bytes(*x.shape[1:], 6)} B shared a block at severity 3); K5p equal to K5 "
-                     f"at severities 1-5")
+                     f"{kern.glass_shared_bytes(*x.shape[1:], 6)} B shared a block at severity 3); K5p equal to its "
+                     f"plain version and to K5 at severities 1-5 at {tuple(x.shape)} and at "
+                     f"{', '.join(map(str, K5P_ODD_SHAPES))} on a base 4 bytes off 16 (G {groups}; "
+                     f"{kern.glass_packed_shared_bytes(groups[0], *x.shape[1:], 6)} B shared a block at severity 3)")
 
 
 def check_k8(x, bound) -> dict:
     """K8 against its plain version at sigma 0 and 0.18, with the constants
-    of tests/test_pallas.py:89."""
+    of tests/test_pallas.py:89, on ``x`` and, on a base 4 bytes off 16, at
+    K2_ODD_SHAPE (d = 3069: Philox groups straddle images)."""
     import torch
 
     from fav_tpu_torch.ops import corruptions as plain
@@ -623,24 +643,35 @@ def check_k8(x, bound) -> dict:
 
     seed = SEED + 14
     n = x.numel()
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 22)
+    odd = misaligned(torch.rand(K2_ODD_SHAPE, generator=gen, device=x.device))
     out = {}
     for sigma in K8_SIGMAS:
         noise = sigma > 0.0
         got = kern.corrupt_normalize(seed, x, sigma, **K8_CONSTANTS)
         want = plain.corrupt_normalize_plain(seed, x, sigma, **K8_CONSTANTS)
+        odd_got = kern.corrupt_normalize(seed, odd, sigma, **K8_CONSTANTS)
+        odd_want = plain.corrupt_normalize_plain(seed, odd, sigma, **K8_CONSTANTS)
         torch.cuda.synchronize()
         check(got.shape == x.shape and bool(torch.isfinite(got).all()), f"K8 sigma {sigma}: bad output")
+        check(odd_got.shape == odd.shape and bool(torch.isfinite(odd_got).all()),
+              f"K8 sigma {sigma} at {K2_ODD_SHAPE}: bad output")
         err = float((got - want).abs().max())
+        odd_err = float((odd_got - odd_want).abs().max())
         check(err <= K8_TOL[noise], f"K8 sigma {sigma}: max diff {err} > {K8_TOL[noise]}")
+        check(odd_err <= K8_TOL[noise], f"K8 sigma {sigma} at {K2_ODD_SHAPE}: max diff {odd_err} > {K8_TOL[noise]}")
+        geo = kern.corrupt_normalize_geometry(n // x.shape[0], noise)
         ms = time_ms(lambda: kern.corrupt_normalize(seed, x, sigma, **K8_CONSTANTS), reps=20)
         plain_ms = time_ms(lambda: plain.corrupt_normalize_plain(seed, x, sigma, **K8_CONSTANTS), reps=3, warmup=1)
         bytes_moved = 2 * n * 4
         ops = K8_OPS_PER_ELEMENT[noise] * n
         bound_ms, by = bound(bytes_moved, ops)
-        out[f"sigma={sigma}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                 "bound_by": by}
-        phase("kernels", f"K8 corrupt_normalize (sigma {sigma}): max|kernel-plain| {err:.3e} (tol "
-                         f"{K8_TOL[noise]}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        out[f"sigma={sigma}"] = {"max_abs_err": err, "odd_max_abs_err": odd_err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": by}
+        phase("kernels", f"K8 corrupt_normalize (sigma {sigma}): max|kernel-plain| {err:.3e}, at {K2_ODD_SHAPE} "
+                         f"on a base 4 bytes off 16 {odd_err:.3e} (tol {K8_TOL[noise]}); {geo.threads} threads a "
+                         f"block, {geo.groups_per_thread} groups a thread; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                         f"bound {bound_ms:.4f} ms, {ms / bound_ms:.2f}x the bound "
                          f"({by}: {bytes_moved / 1e6:.1f} MB, {ops / 1e9:.3f} Gop); library: none (no single "
                          f"PyTorch call draws the normals and applies the fused pass)")
     return out
@@ -1306,8 +1337,9 @@ def main(argv: list[str]) -> int:
     report["glass_resample_packed"] = {"kid": "K5p", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                        "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
     phase("kernels", f"K5p glass_resample_packed (G={g5}): max|kernel-plain| {err:.3e}, max|K5p-K5| "
-                     f"{err_k5:.3e} (exact); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                     f"({by}, as K5); library: none")
+                     f"{err_k5:.3e} (exact); {kern.glass_packed_shared_bytes(g5, h, w, c, 2 * iters)} B shared a "
+                     f"block; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}, as K5), "
+                     f"{ms / bound_ms:.2f}x the bound; library: none")
     del got, want, got_p, want_p
 
     # K6: the elastic warp on the fields of a seed, exact at every severity

@@ -150,7 +150,7 @@ def create_model(params: ModelParams | None = None) -> FailureAwareCNN:
     p = params or ModelParams()
     if p.arch != "vgg":
         raise NotImplementedError(
-            f"arch {p.arch!r} is not ported yet: ROADMAP.md Queue 1 item 3 (ResNetSmall, ViT)")
+            f"arch {p.arch!r} is not ported yet: ROADMAP.md Queue 1 item 4 (ResNetSmall, ViT)")
     return FailureAwareCNN(
         num_classes=p.num_classes,
         widths=tuple(p.widths),

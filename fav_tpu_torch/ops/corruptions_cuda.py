@@ -57,9 +57,12 @@ __all__ = [
     "PHOTOMETRIC_MAX_D",
     "SHARED_MEMORY_LIMIT",
     "OPT_IN_SHARED_MEMORY_LIMIT",
+    "NormGeometry",
     "PackedWarpGeometry",
     "ShotGeometry",
+    "corrupt_normalize_geometry",
     "elastic_packed_geometry",
+    "glass_packed_shared_bytes",
     "glass_shared_bytes",
     "shot_geometry",
     "multiprocessors",
@@ -85,14 +88,19 @@ _U32 = ctypes.c_uint32
 _F32 = ctypes.c_float
 _I32 = ctypes.c_int
 
-# K4 and K8 hold one image in shared memory: d floats plus 32 bytes of their own,
-# inside the 48 KB a block gets without opting in to more.
+# K4 holds one image in shared memory: d floats plus 32 bytes of its own,
+# inside the 48 KB a block gets without opting in to more. K8 holds an image
+# in registers and keeps the same limit (corrupt_normalize_geometry).
 PHOTOMETRIC_MAX_D = 11 * 1024
+# K8's float4 groups a thread holds: at most 4 (kNormGroups in
+# csrc/corruptions.cu), 3 with noise, where a group's normals cost more
+# than its load and a shorter chain a thread ran faster on the card.
+K8_GROUPS = {False: 4, True: 3}
 # K5 and K6 hold one image per block in dynamic shared memory, within the
 # same 48 KB.
 SHARED_MEMORY_LIMIT = 48 * 1024
 # K5p holds a group of G images per block, K6p two; their launchers opt in
-# to more than 48 KB, up to what a Hopper block can have.
+# above 48 KB, up to what a Hopper block can have.
 OPT_IN_SHARED_MEMORY_LIMIT = 227 * 1024
 # An H100 SM's shared memory, of which each resident block also takes 1 KB.
 SM_SHARED_MEMORY = 228 * 1024
@@ -132,6 +140,38 @@ def glass_shared_bytes(h: int, w: int, c: int, passes: int) -> int:
     barrier, the input and output tiles of round4(H W C + 3) floats each
     (an image at its 16-byte phase) and one code byte a pixel a pass."""
     return 16 + 2 * ((h * w * c + 6) // 4 * 4) * 4 + passes * h * w
+
+
+def glass_packed_shared_bytes(g: int, h: int, w: int, c: int, passes: int) -> int:
+    """K5p's shared memory a block (csrc/glass.cu, one group of ``g``
+    images): a 16-byte barrier, the group's tile of round4(G H W C + 3)
+    floats (the group at its 16-byte phase), one code byte a pixel a pass
+    (rounded up to 16 bytes) and a 16-bit source index a pixel; no output
+    tile. Raises past what a Hopper block can have."""
+    n = g * h * w
+    need = 16 + ((n * c + 6) // 4 * 4) * 4 + (passes * n + 15) // 16 * 16 + 2 * n
+    _shared_memory("glass_resample", need, OPT_IN_SHARED_MEMORY_LIMIT, f"a group of {g} {h}x{w}x{c} images")
+    return need
+
+
+class NormGeometry(NamedTuple):
+    """K8's launch: one block of ``threads`` threads an image, each holding
+    at most ``groups_per_thread`` of the image's float4 groups."""
+    threads: int
+    groups_per_thread: int
+
+
+def corrupt_normalize_geometry(d: int, noise: bool) -> NormGeometry:
+    """K8's block for images of ``d`` floats: the Philox groups of four
+    that an image's span covers (d / 4, or one more where d is not a
+    multiple of 4 and the span straddles groups at both ends), spread over
+    whole warps at most ``K8_GROUPS[noise]`` a thread. Raises past
+    ``PHOTOMETRIC_MAX_D``."""
+    if not 1 <= d <= PHOTOMETRIC_MAX_D:
+        raise ValueError(f"corrupt_normalize holds 1 to {PHOTOMETRIC_MAX_D} values per image, got {d}")
+    groups = (d + 2) // 4 + 1 if d % 4 else d // 4
+    threads = -(-groups // (32 * K8_GROUPS[noise])) * 32
+    return NormGeometry(threads, -(-groups // threads))
 
 
 class PackedWarpGeometry(NamedTuple):
@@ -230,7 +270,7 @@ KERNELS = {
                               [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P]),
     # K8, replaces corruptions_pallas.py:_corrupt_normalize_kernel
     "corrupt_normalize": CudaKernel("corruptions", "fav_corrupt_normalize",
-                                    [_P, _P, _I32, _I32, _U32, _U32, _F32, _F32, _F32, _F32, _F32, _P]),
+                                    [_P, _P, _I32, _I32, _I32, _U32, _U32, _F32, _F32, _F32, _F32, _F32, _P]),
     # K9a and K9b, replace augment_pallas.py:_shear_rows_kernel and _shear_cols_kernel;
     # wrappers in ops/augment_cuda.py
     "shear_rows": CudaKernel("shear", "fav_shear_rows", [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]),
@@ -347,10 +387,9 @@ def corrupt_normalize(seed: int, x: torch.Tensor, sigma: float = 0.0, bright: fl
         return plain.corrupt_normalize_plain(seed, x, sigma, bright, contrast, mean, scale)
     b = x.shape[0]
     d = x.numel() // b
-    if d > PHOTOMETRIC_MAX_D:
-        raise ValueError(f"corrupt_normalize holds at most {PHOTOMETRIC_MAX_D} values per image, got {d}")
+    geo = corrupt_normalize_geometry(d, sigma > 0.0)
     out = torch.empty_like(x)
-    KERNELS["corrupt_normalize"].launch(x.device, x.data_ptr(), out.data_ptr(), b, d, *seed_key(seed),
+    KERNELS["corrupt_normalize"].launch(x.device, x.data_ptr(), out.data_ptr(), b, d, geo.threads, *seed_key(seed),
                                         sigma, bright, contrast, mean, scale)
     return out
 
@@ -397,8 +436,7 @@ def glass_resample(seed: int, x: torch.Tensor, m: int, iters: int, packed: bool 
     passes = 2 * int(iters)
     out = torch.empty_like(x)
     if g > 1:
-        _shared_memory("glass_resample", g * (2 * h * w * c * 4 + passes * h * w), OPT_IN_SHARED_MEMORY_LIMIT,
-                       f"a group of {g} {h}x{w}x{c} images")
+        glass_packed_shared_bytes(g, h, w, c, passes)
         KERNELS["glass_resample_packed"].launch(x.device, x.data_ptr(), out.data_ptr(), b, g, h, w, c, int(m),
                                                 passes, *seed_key(seed))
         return out

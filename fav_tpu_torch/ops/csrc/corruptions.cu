@@ -315,63 +315,98 @@ __global__ void photometric_kernel(const float* __restrict__ x, float* __restric
 // Replaces corruptions_pallas.py:_corrupt_normalize_kernel (:129).
 // out = (clip((x - mu) contrast + mu + bright + sigma z) - mean) scale, mu
 // the per-image mean, z K1's normal (Box-Muller on Philox draws 0 and 1 of
-// the element's group), one clip. Bound: bytes (about 100 operations per
-// element with noise, 10 without). One block per image, as K4: the image is
-// read once into shared memory while the block sums it in float32 for mu,
-// then each thread walks the Philox groups (4 elements) that cover its
-// image, so the draws are those of the flat tensor's stream even where d is
-// not a multiple of 4 and a group straddles two images. With sigma = 0 no
-// draws are made. The operations are the plain version's, in its order.
-__global__ void corrupt_normalize_kernel(const float* __restrict__ x, float* __restrict__ out, int d,
-                                         uint32_t k0, uint32_t k1, float sigma, float bright,
-                                         float contrast, float mean, float scale) {
-  extern __shared__ float tile[];
-  __shared__ float warp_sums[kThreads / 32];
+// the element's group), one clip. With sigma = 0 no draws are made. The
+// operations are the plain version's, in its order.
+//
+// Bound: bytes (about 100 operations per element with noise, 10 without).
+//
+// Design: one block per image, the image held in registers. The Philox
+// groups of four that cover the image, in the flat tensor's stream, are
+// its units: thread t holds groups t, t + T, ... (at most kNormGroups, T
+// the block's threads, chosen by the wrapper's corrupt_normalize_geometry
+// from d and whether it draws), loaded as float4s where the pointers are
+// 16-byte aligned, so a warp's loads and stores cover whole sectors. A
+// group that straddles two images, the image's first or last where d is
+// not a multiple of 4, is loaded and stored element by element, its
+// outside elements skipped; on a misaligned base every group goes element
+// by element. Each thread draws its groups' normals before the reduction,
+// since they depend only on the counter, so that arithmetic hides the
+// loads. The block sums the image with warp shuffles, one value a warp in
+// shared memory and a single barrier, after which every thread adds the
+// warp sums in the same order; then each thread writes its groups.
+constexpr int kNormGroups = 4;  // K8: float4 groups a thread holds at most
+
+template <bool kNoise>
+__global__ void __launch_bounds__(1024)
+    corrupt_normalize_kernel(const float* __restrict__ x, float* __restrict__ out, int d, uint32_t k0,
+                             uint32_t k1, float sigma, float bright, float contrast, float mean, float scale,
+                             bool vec) {
+  __shared__ float warp_sums[32];
   const long long base = static_cast<long long>(blockIdx.x) * d;
-  const float* xi = x + base;
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const float v = xi[i];
-    tile[i] = v;
-    s = __fadd_rn(s, v);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = s;
-  __syncthreads();  // also publishes tile[]
-  if (warp == 0) {
-    const int nwarps = blockDim.x >> 5;
-    s = lane < nwarps ? warp_sums[lane] : 0.0f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_down_sync(0xffffffffu, s, off));
-    if (lane == 0) warp_sums[0] = __fdiv_rn(s, static_cast<float>(d));
-  }
-  __syncthreads();
-  const float mu = warp_sums[0];
-  const bool noise = sigma > 0.0f;
+  const long long end = base + d;
   const long long g_first = base / 4;
-  const long long g_last = (base + d - 1) / 4;
-  for (long long g = g_first + threadIdx.x; g <= g_last; g += blockDim.x) {
-    uint4 w1 = make_uint4(0u, 0u, 0u, 0u), w2 = w1;
-    if (noise) {
-      w1 = draw_words(g, 0u, k0, k1);
-      w2 = draw_words(g, 1u, k0, k1);
+  const int ng = static_cast<int>((end - 1) / 4 - g_first + 1);
+  float v[kNormGroups][4];
+  float noise[kNormGroups][4];  // sigma z
+  float s = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kNormGroups; ++r) {
+    const int k = threadIdx.x + r * blockDim.x;
+    const long long g = g_first + k;
+    const long long e0 = 4 * g;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[r][j] = 0.0f;
+    if (k < ng) {
+      if (vec && e0 >= base && e0 + 4 <= end) {
+        const float4 q = reinterpret_cast<const float4*>(x)[g];
+        v[r][0] = q.x; v[r][1] = q.y; v[r][2] = q.z; v[r][3] = q.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (e0 + j >= base && e0 + j < end) v[r][j] = x[e0 + j];
+      }
+      if (kNoise) {
+        const uint4 w1 = draw_words(g, 0u, k0, k1);
+        const uint4 w2 = draw_words(g, 1u, k0, k1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float u1 = bits_to_uniform(word(w1, j));
+          const float u2 = bits_to_uniform(word(w2, j));
+          const float rad = sqrtf(__fmul_rn(-2.0f, logf(u1)));
+          noise[r][j] = __fmul_rn(sigma, __fmul_rn(rad, cosf(__fmul_rn(6.2831854820251465f, u2))));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s = __fadd_rn(s, v[r][j]);  // outside elements are 0
     }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = s;
+  __syncthreads();
+  s = 0.0f;
+  for (int wp = 0; wp < static_cast<int>(blockDim.x >> 5); ++wp) s = __fadd_rn(s, warp_sums[wp]);
+  const float mu = __fdiv_rn(s, static_cast<float>(d));
+
+#pragma unroll
+  for (int r = 0; r < kNormGroups; ++r) {
+    const int k = threadIdx.x + r * blockDim.x;
+    if (k >= ng) continue;
+    const long long g = g_first + k;
+    const long long e0 = 4 * g;
+    float o[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const long long i = 4 * g + j - base;
-      if (i < 0 || i >= d) continue;
-      float y = __fadd_rn(__fadd_rn(__fmul_rn(__fsub_rn(tile[i], mu), contrast), mu), bright);
-      if (noise) {
-        const float u1 = bits_to_uniform(word(w1, j));
-        const float u2 = bits_to_uniform(word(w2, j));
-        const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
-        const float z = __fmul_rn(r, cosf(__fmul_rn(6.2831854820251465f, u2)));
-        y = __fadd_rn(y, __fmul_rn(sigma, z));
-      }
-      out[base + i] = __fmul_rn(__fsub_rn(clip01(y), mean), scale);
+      float y = __fadd_rn(__fadd_rn(__fmul_rn(__fsub_rn(v[r][j], mu), contrast), mu), bright);
+      if (kNoise) y = __fadd_rn(y, noise[r][j]);
+      o[j] = __fmul_rn(__fsub_rn(clip01(y), mean), scale);
+    }
+    if (vec && e0 >= base && e0 + 4 <= end) {
+      reinterpret_cast<float4*>(out)[g] = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (e0 + j >= base && e0 + j < end) out[e0 + j] = o[j];
     }
   }
 }
@@ -464,14 +499,25 @@ int fav_photometric(const float* x, float* out, int batch, int d, float bright, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// d floats of shared memory per block: the wrapper keeps d <= 11264 (44 KB).
-int fav_corrupt_normalize(const float* x, float* out, int batch, int d, uint32_t seed_lo, uint32_t seed_hi,
-                          float sigma, float bright, float contrast, float mean, float scale,
+// K8 on one block of `threads` threads an image (the wrapper's
+// corrupt_normalize_geometry): a multiple of 32, at most 1024, with
+// threads * kNormGroups at least the groups an image covers, else
+// cudaErrorInvalidValue.
+int fav_corrupt_normalize(const float* x, float* out, int batch, int d, int threads, uint32_t seed_lo,
+                          uint32_t seed_hi, float sigma, float bright, float contrast, float mean, float scale,
                           void* stream) {
   if (batch <= 0 || d <= 0) return 0;
-  corrupt_normalize_kernel<<<batch, kThreads, static_cast<size_t>(d) * sizeof(float),
-                             static_cast<cudaStream_t>(stream)>>>(
-      x, out, d, seed_lo, seed_hi, sigma, bright, contrast, mean, scale);
+  const int groups = d % 4 ? (d + 2) / 4 + 1 : d / 4;  // the most an image's span of d elements covers
+  if (threads <= 0 || threads > 1024 || threads % 32 || threads * kNormGroups < groups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sigma > 0.0f) {
+    corrupt_normalize_kernel<true><<<batch, threads, 0, st>>>(x, out, d, seed_lo, seed_hi, sigma, bright, contrast,
+                                                              mean, scale, aligned16(x, out));
+  } else {
+    corrupt_normalize_kernel<false><<<batch, threads, 0, st>>>(x, out, d, seed_lo, seed_hi, sigma, bright,
+                                                               contrast, mean, scale, aligned16(x, out));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

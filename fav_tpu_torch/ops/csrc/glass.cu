@@ -59,7 +59,8 @@
 namespace {
 
 constexpr int kThreads = 128;  // K5: threads a block (one image)
-constexpr int kPackedThreads = 512;  // K5p: one 120 KB block fills an SM
+constexpr int kPackedThreads = 512;  // K5p: threads a block (one group), two blocks an SM
+constexpr int kOptInLimit = 227 * 1024;  // the shared memory a Hopper block can opt in to
 
 // The code byte of every pass of pixels first .. first + n - 1 (element
 // indices of each draw) into codes[pass * n + q], q = pixel - first. The
@@ -160,75 +161,117 @@ __global__ void __launch_bounds__(kThreads) glass_resample_kernel(const float* _
 //
 // Bound: bytes, the same as K5 (each image read once and written once).
 //
-// Design: one block per group of G consecutive images, held in shared
-// memory as one packed (H, G*W, C) tile in a ping-pong pair, with one code
-// byte per pixel per pass: 2*G*H*W*C*4 + passes*G*H*W bytes, 120 KB at
-// G = 4, 32x32x3 and 3 rounds, above the 48 KB a block gets by default, so
-// the launcher opts in (at most 227 KB a block on Hopper). The G images lie
-// one after another in device memory, so the block reads and writes them in
-// that order, coalesced, and packs and unpacks on the way into and out of
-// shared memory: no transposed copy goes through device memory, where the
-// TPU's pack and unpack transposes (:375-380, :395-399) are what made
-// packing lose there (:363-366). A GPU has no lanes to fill, so the packing
-// buys nothing here; it is kept to hold the clipped-offset arithmetic of
-// the TPU kernel to K5 on the card.
-__global__ void glass_resample_packed_kernel(const float* __restrict__ x, float* __restrict__ out,
-                                             int g, int h, int w, int c, int m, int passes,
-                                             uint32_t k0, uint32_t k1) {
-  extern __shared__ float smem[];
+// Design: K5's backward chase in packed coordinates. One block per group
+// of G consecutive images. They lie one after another in device memory, so
+// one 1-D bulk copy (bulk_copy.cuh, at the group's 16-byte phase) brings
+// the group into shared memory as it lies, with no pack loop and no
+// division per element; while it flies the block draws the codes of every
+// pass of the group's G H W pixels (draw_codes). After one wait each thread
+// chases its pixels back through the passes, a row pass clamping i and a
+// column pass taking the TPU kernel's clipped step
+// j += clip(code - m, -j, W - 1 - j), stepping from pixel to pixel by fixed
+// image, row and column increments (no division), and writes each pixel's
+// source into a table of 16-bit group pixel indices. After one barrier the
+// threads write the group's output in device order as float4s, each
+// element gathered from the tile through the table, so a warp's stores
+// cover whole sectors. Shared memory holds the tile, the codes and the
+// table, no output tile and no ping-pong pair: 80 KB at G = 4, 32x32x3 and
+// 6 passes, so two blocks share an SM and one block's copy and draws
+// overlap the other's chase. The table costs a third block an SM, but
+// without it each float4 would chase its one or two pixels itself, 1.5
+// times as many chases at C = 3. The wrapper (glass_packed_shared_bytes)
+// keeps a block within the 227 KB a Hopper block can have; the launcher
+// opts in above 48 KB.
+//
+// The source of pixel (i, j) of the image starting at group pixel img: the
+// group pixel its value comes from after the 2 rounds passes.
+__device__ __forceinline__ int chase_packed(const unsigned char* codes, int n, int img, int i, int j,
+                                            int h, int w, int m, int rounds) {
+  for (int t = rounds - 1; t >= 0; --t) {
+    const int off_col = static_cast<int>(codes[(2 * t + 1) * n + img + i * w + j]) - m;
+    j += min(max(off_col, -j), w - 1 - j);  // d_eff: the lane stays in its own image
+    const int off_row = static_cast<int>(codes[2 * t * n + img + i * w + j]) - m;
+    i = min(max(i + off_row, 0), h - 1);
+  }
+  return img + i * w + j;
+}
+
+// Shared memory of K5p: the barrier (16 bytes), the tile of tile_floats
+// floats, the codes (passes n bytes, rounded up to 16) and the table (n
+// 16-bit indices).
+__host__ __device__ constexpr long long packed_codes_bytes(long long n, int passes) {
+  return (passes * n + 15) & ~15LL;
+}
+
+__global__ void __launch_bounds__(kPackedThreads, 2)
+    glass_resample_packed_kernel(const float* __restrict__ x, float* __restrict__ out, int g, int h, int w,
+                                 int c, int m, int rounds, int tile_floats, uint32_t k0, uint32_t k1) {
+  extern __shared__ __align__(128) unsigned char packed_smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(packed_smem);
+  float* in_tile = reinterpret_cast<float*>(packed_smem + 16);
+  unsigned char* codes = reinterpret_cast<unsigned char*>(in_tile + tile_floats);
   const int hw = h * w;
-  const int gw = g * w;
   const int n = g * hw;  // pixels of the group
-  const int d = n * c;
-  float* src = smem;
-  float* dst = smem + d;
-  unsigned char* codes = reinterpret_cast<unsigned char*>(smem + 2 * d);
+  const int d = n * c;   // floats of the group
+  unsigned short* table = reinterpret_cast<unsigned short*>(codes + packed_codes_bytes(n, 2 * rounds));
   const long long first = static_cast<long long>(blockIdx.x) * n;  // the group's first pixel
-  const float* xg = x + first * c;
   float* og = out + first * c;
 
-  // element e of the group in device order is channel ch of pixel q =
-  // s*H*W + i*W + j; in the tile it is channel ch of packed pixel i*G*W + s*W + j
-  for (int e = threadIdx.x; e < d; e += blockDim.x) {
-    const int q = e / c;
-    const int s = q / hw;
-    const int r = q - s * hw;
-    const int i = r / w;
-    src[(i * gw + s * w + (r - i * w)) * c + (e - q * c)] = xg[e];
+  if (threadIdx.x == 0) fav::mbar_init(bar);
+  __syncthreads();
+  const float* tile = in_tile + fav::bulk_load(in_tile, bar, x + first * c, d);
+  draw_codes(codes, first, n, m, 2 * rounds, k0, k1);
+  fav::mbar_wait(bar, 0);
+  __syncthreads();  // the codes, and the tile's head and tail
+
+  // pixel q = t, t + T, ... (image start img, row i, column j), T = blockDim.x
+  const int step = blockDim.x;
+  int img = threadIdx.x / hw * hw;
+  int i = (threadIdx.x - img) / w;
+  int j = threadIdx.x - img - i * w;
+  const int dimg = step / hw * hw;
+  const int di = (step - dimg) / w;
+  const int dj = step - dimg - di * w;
+  for (int q = threadIdx.x; q < n; q += step) {
+    table[q] = static_cast<unsigned short>(chase_packed(codes, n, img, i, j, h, w, m, rounds));
+    img += dimg;
+    i += di;
+    j += dj;
+    if (j >= w) {
+      j -= w;
+      ++i;
+    }
+    if (i >= h) {
+      i -= h;
+      img += hw;
+    }
   }
-  draw_codes(codes, first, n, m, passes, k0, k1);
   __syncthreads();
 
-  for (int pass = 0; pass < passes; ++pass) {
-    const unsigned char* pc = codes + pass * n;
-    const bool rows = (pass & 1) == 0;
-    for (int p = threadIdx.x; p < n; p += blockDim.x) {
-      const int i = p / gw;
-      const int lane = p - i * gw;
-      const int s = lane / w;
-      const int j = lane - s * w;
-      const int off = static_cast<int>(pc[s * hw + i * w + j]) - m;
-      int from;
-      if (rows) {
-        from = min(max(i + off, 0), h - 1) * gw + lane;
-      } else {
-        const int d_eff = min(max(off, -j), w - 1 - j);  // stays in the lane's own image
-        from = p + d_eff;
+  // the output in device order: head floats up to og's first 16-byte
+  // boundary, a body of float4s, a tail of at most three floats
+  const int head = min((4 - fav::phase16(og)) & 3, d);
+  const int quads = (d - head) >> 2;
+  for (int f = threadIdx.x; f < quads; f += step) {
+    const int e = head + 4 * f;
+    int q = e / c;
+    int ch = e - q * c;
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k > 0 && ++ch == c) {
+        ch = 0;
+        ++q;
       }
-      for (int ch = 0; ch < c; ++ch) dst[p * c + ch] = src[from * c + ch];
+      v[k] = tile[static_cast<int>(table[q]) * c + ch];
     }
-    __syncthreads();
-    float* t = src;
-    src = dst;
-    dst = t;
+    reinterpret_cast<float4*>(og + e)[0] = make_float4(v[0], v[1], v[2], v[3]);
   }
-
-  for (int e = threadIdx.x; e < d; e += blockDim.x) {
+  const int rest = d - 4 * quads;  // head and tail
+  for (int r = threadIdx.x; r < rest; r += step) {
+    const int e = r < head ? r : 4 * quads + r;
     const int q = e / c;
-    const int s = q / hw;
-    const int r = q - s * hw;
-    const int i = r / w;
-    og[e] = src[(i * gw + s * w + (r - i * w)) * c + (e - q * c)];
+    og[e] = tile[static_cast<int>(table[q]) * c + (e - q * c)];
   }
 }
 
@@ -256,22 +299,29 @@ int fav_glass_resample(const float* x, float* out, int batch, int h, int w, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5p over batch / g groups of g images. Shared memory per block: 2 g h w c
-// floats and passes g h w code bytes, above 48 KB at the main path's shapes:
-// the launcher opts the kernel in to that much (the wrapper keeps it within
-// the 227 KB a Hopper block can have); m within 0..127 as for K5.
+// K5p over batch / g groups of g images, one block a group. Shared memory
+// per block: 16 bytes of barrier, the group's tile of round4(g h w c + 3)
+// floats, passes g h w code bytes rounded up to 16 and g h w 16-bit table
+// entries (the wrapper's glass_packed_shared_bytes), opted in to above the
+// 48 KB a block gets by default; m within 0..127 as for K5, and at most
+// 65536 pixels a group for the table.
 int fav_glass_resample_packed(const float* x, float* out, int batch, int g, int h, int w, int c,
                               int m, int passes, uint32_t seed_lo, uint32_t seed_hi, void* stream) {
   if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || passes <= 0) return 0;
-  if (g <= 0 || batch % g) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * static_cast<size_t>(g) * h * w * c * sizeof(float) +
-                      static_cast<size_t>(passes) * g * h * w;
-  const cudaError_t err = cudaFuncSetAttribute(glass_resample_packed_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  glass_resample_packed_kernel<<<batch / g, kPackedThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, out, g, h, w, c, m, passes, seed_lo, seed_hi);
+  if (g <= 0 || batch % g || passes % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(g) * h * w;
+  const long long tile_floats = (n * c + 3 + 3) & ~3LL;
+  const long long smem = 16 + tile_floats * 4 + packed_codes_bytes(n, passes) + 2 * n;
+  if (smem > kOptInLimit || n > 65536) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(glass_resample_packed_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  glass_resample_packed_kernel<<<batch / g, kPackedThreads, static_cast<size_t>(smem),
+                                 static_cast<cudaStream_t>(stream)>>>(
+      x, out, g, h, w, c, m, passes / 2, static_cast<int>(tile_floats), seed_lo, seed_hi);
   return static_cast<int>(cudaGetLastError());
 }
 

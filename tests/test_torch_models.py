@@ -201,8 +201,9 @@ def test_model_params_copy_equals_fav_tpu():
 
 
 def test_create_model_refuses_unported_archs():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as refused:
         create_model(tconfig.ModelParams(arch="resnet"))
+    assert "Queue 1 item 4" in str(refused.value)  # the models item, not the weight bridge (item 3)
     model = create_model(tconfig.ModelParams(widths=(8,), dense_width=16))
     assert model(torch.zeros(2, 32, 32, 3)).shape == (2, 10)
 
