@@ -4,11 +4,12 @@ to its plain PyTorch version, run the fifteen-family detection megastep of
 ``bench.py``'s cells with the nano student, run the frame-analysis service
 on scripted camera streams and the grid's L1 pass into the policy replay,
 train the ``classifier`` configuration with AugMix for a few steps, run the
-packed A/B of glass and elastic, and report.
+packed A/B of glass and elastic, serve the decision-support app's live path
+and its socket, and report.
 
     python3 chip_smoke.py             # what the checks run
-    python3 chip_smoke.py --profile   # adds torch.profiler tables of one megastep, one analyzer batch
-                                      # and one train step
+    python3 chip_smoke.py --profile   # adds torch.profiler tables of one megastep, one analyzer batch,
+                                      # one train step and 30 live ticks of the server
 
 Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
 
@@ -85,7 +86,38 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                one megastep of each from equal generators with the counts
                reset just before (K5p and K6p once in the packed one, K5
                and K6 once in the unpacked one), outputs within the
-               megastep tolerance, ms per megastep and img/s.
+               megastep tolerance, ms per megastep and img/s;
+10. serve   -- the decision-support server (``serving/app.py``): for the
+               default deployment (msp on ``student_nano``) and then the
+               ``gated`` preset (``student_std`` gated by ``student_nano``),
+               ``ConnectionState``s with the AnalysisService (240x320,
+               capacity 64) and the InferenceService on the card, on
+               scripted streams (8 each OK, frozen, blank, corrupted; no
+               camera or cv2 needed) for 60 ticks: 32 streams (the
+               services' bucket 32), one frozen stream (bucket 1, one
+               camera, the usual load) and one stream of each kind (bucket
+               8). Each set runs first in lockstep (each frame analyzed and
+               scored before its tick, as the golden was written: final
+               statuses and policies equal to the JAX app's, reliabilities
+               within 1e-6, every frame analyzed and scored once, the
+               set's bucket used), then through ``_tick_live`` at 30 Hz
+               with the streams' own pipelines (statuses equal to the JAX
+               app's, policies equal or one step less restrictive, as a
+               late onset leaves them; the onset and frame lag printed);
+               counts reset just before each run and read once its frames
+               are back: K7 once per dispatched analysis batch and no other
+               kernel; ``--profile`` adds the device's busy share over 30
+               more paced ticks of the 32 streams; the service's rows for
+               the golden's frames (``score_batch``) against the JAX
+               service's (argmax equal, ``tools/scripted_serve.py``'s bf16
+               bounds); tick wall p50/p99, both services' batch latencies,
+               frames scored and analyzed per second and which JPEG encoder
+               served. Then ``create_app``
+               on 127.0.0.1 and a free port, driven by a stdlib-socket
+               client: ``/health``, the three pages, the upload whitelist,
+               ``/ws`` states with the JAX app's keys falling under
+               ``set_vision frozen``, ``/ws/playground`` equal to the golden
+               replay.
 
 The line before the last is one JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -231,6 +263,11 @@ K7_SHAPES = ((32, 240, 320), (6144, 32, 32))  # the service's bucket 32, the gri
 # whose 2-row strip would pass 48 KB with the block's header, and two whose
 # rows pass it (column tiles, each staged row at its own 16-byte phase)
 K7_CHECK_SHAPES = ((3, 241, 317), (5, 2, 2), (1, 1024, 2048), (1, 1000, 2000), (1, 3, 3000), (1, 3, 4099))
+# the analysis service's other buckets (serving/analysis.py BUCKETS), one
+# and up to eight cameras: frame_stats_geometry cuts their frames into
+# 4-row strips (60 a frame) where bucket 32 takes 15-row strips. Held to
+# the plain version only, on the service's own (aligned) base.
+K7_BUCKET_SHAPES = ((1, 240, 320), (8, 240, 320))
 # K6p at a batch of fewer groups than its persistent grid has blocks, on a
 # base 4 bytes off a 16-byte boundary as well
 K6P_SMALL_BATCH = 12
@@ -389,16 +426,6 @@ def profile_step(step, step_ms: float, label: str) -> None:
               flush=True)
 
 
-class LatencyRecorder:
-    """The service's ``timer``: keeps every recorded duration."""
-
-    def __init__(self):
-        self.seconds: dict[str, list[float]] = {}
-
-    def record(self, name: str, seconds: float) -> None:
-        self.seconds.setdefault(name, []).append(seconds)
-
-
 def k7_frames(dev, gen, b: int, h: int, w: int, offset: int = 0):
     """gray, prev [b, h, w] int32 and has_prev [b] for K7's checks: random
     levels; the first of every eight frames flat (all of them with b < 8
@@ -426,8 +453,9 @@ def k7_frames(dev, gen, b: int, h: int, w: int, offset: int = 0):
 
 def check_k7(dev, gen, bound) -> dict:
     """K7 against its plain version, statistics and histograms exact, at the
-    service's and the grid's shapes (timed: the wrapper, the plain version
-    and ``torch.bincount`` for the histogram part) and at K7_CHECK_SHAPES."""
+    service's bucket 32 and the grid's shapes (timed: the wrapper, the plain
+    version and ``torch.bincount`` for the histogram part), at the service's
+    other buckets (K7_BUCKET_SHAPES) and at K7_CHECK_SHAPES."""
     import torch
 
     from fav_tpu_torch.ops import corruptions_cuda as kern
@@ -435,9 +463,10 @@ def check_k7(dev, gen, bound) -> dict:
     from fav_tpu_torch.ops import signal_cuda
 
     shapes = {}
-    for b, h, w in K7_SHAPES + K7_CHECK_SHAPES:
+    for b, h, w in K7_SHAPES + K7_BUCKET_SHAPES + K7_CHECK_SHAPES:
         timed = (b, h, w) in K7_SHAPES
-        gray, prev, has_prev = k7_frames(dev, gen, b, h, w, offset=0 if timed else 1)
+        off_base = (b, h, w) in K7_CHECK_SHAPES
+        gray, prev, has_prev = k7_frames(dev, gen, b, h, w, offset=1 if off_base else 0)
         geo = signal_cuda.frame_stats_geometry(b, h, w, kern.multiprocessors(dev))
         stats, hist = signal_cuda.frame_statistics(gray, prev, has_prev)
         want_stats, want_hist = sig.frame_statistics_plain(gray, prev, has_prev)
@@ -453,7 +482,8 @@ def check_k7(dev, gen, bound) -> dict:
         layout = (f"{geo.tiles} tiles of {geo.rows}x{geo.cols} a frame, {geo.blocks} blocks of {geo.units}x{geo.team} "
                   f"threads, {geo.shared_bytes} B shared")
         if not timed:
-            phase("kernels", f"K7 frame_stats {(b, h, w)} (base 4 bytes off 16): statistics and histograms equal to "
+            base = "base 4 bytes off 16" if off_base else "a bucket of the analysis service"
+            phase("kernels", f"K7 frame_stats {(b, h, w)} ({base}): statistics and histograms equal to "
                              f"the plain version; {layout}")
             continue
         ms = time_ms(lambda: signal_cuda.frame_statistics(gray, prev, has_prev), reps=20)
@@ -959,6 +989,7 @@ def monitor_phase(dev, profile: bool = False) -> dict:
     from fav_tpu_torch.serving.analysis import AnalysisService
     from fav_tpu_torch.sim.frames import GOLDEN_STREAMS, MONITOR_STREAMS, MONITOR_TICKS, scripted_stream
     from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR
+    from fav_tpu_torch.utils.profiling import StageTimer
 
     golden = json.loads((WEIGHTS_DIR / "monitor.golden.json").read_text())
     h, w = golden["height"], golden["width"]
@@ -985,7 +1016,7 @@ def monitor_phase(dev, profile: bool = False) -> dict:
         await service.close()
         return rows, counts, dispatches, loop.time() - start
 
-    timer = LatencyRecorder()
+    timer = StageTimer(keep_samples=True)
     service = AnalysisService(AnalyzerParams(), h, w, capacity=64, timer=timer, device=dev)
     rows, counts, dispatches, run_s = asyncio.run(drive(service, paced=True))
     want = {k: 0 for k in counts}
@@ -1003,7 +1034,7 @@ def monitor_phase(dev, profile: bool = False) -> dict:
     check(np.array_equal(status[list(GOLDEN_STREAMS)], g_status), "monitor: statuses differ from the JAX golden")
     gerr = float(np.abs(anomaly[list(GOLDEN_STREAMS)] - g_anomaly).max())
     check(gerr <= MONITOR_ATOL, f"monitor: anomalies {gerr} from the JAX golden (tol {MONITOR_ATOL})")
-    lat = np.asarray(timer.seconds.get("analysis_device", [])) * 1e3
+    lat = np.asarray(timer.samples.get("analysis_device", [])) * 1e3
     check(lat.size == dispatches, f"monitor: {lat.size} latencies for {dispatches} batches")
     phase("monitor", f"{len(clips)} streams x {MONITOR_TICKS} ticks at {h}x{w} in {run_s:.3f} s: {dispatches} "
                      f"batches, launches {counts}; statuses as scripted; the {len(GOLDEN_STREAMS)} golden streams "
@@ -1164,6 +1195,447 @@ def packed_phase(dev) -> dict:
                     f"ms ({mega['unpacked']['img_per_sec']:.0f} img/s); outputs within {mega['max_abs_diff']:.3e} "
                     f"(tol {MEGASTEP_TOL}); K5p/K6p once in the packed megastep, K5/K6 once in the unpacked one")
     return ab
+
+
+# Over the socket: the app's pages and the keys every streamed state holds
+# (tests/test_serving.py:140-149, the JAX app's keys in the golden)
+SERVE_PAGES = ("/", "/architecture", "/playground")
+SERVE_FROZEN_STATES = 40  # states read after set_vision frozen at 60 Hz
+# Lockstep final reliabilities against the JAX app's: the analysis anomalies
+# part by float32 reassociation (MONITOR_ATOL) and reach a reliability only
+# through the ML penalty of OK ticks (ml_gain 0.15 x integral x dt).
+SERVE_RELIABILITY_ATOL = 1e-6
+# The paced runs' final policies against the JAX app's lockstep ones. A
+# paced stream sees its failure when its pipeline's analysis lands, one tick
+# or more after the frame, so its reliability may end higher than in
+# lockstep: a frozen stream (0.30/s down to 0.46) ends VISION_DECLINING in
+# place of VISION_DEGRADED if its onset is some 0.8 s late. Paced policies
+# may therefore be up to one step less restrictive, never VISION_ALLOWED
+# where the golden is not, and always VISION_ALLOWED where it is; the
+# lockstep runs hold every policy exactly.
+SERVE_POLICY_BAND = 1
+# Besides the 32 streams: one camera, the server's usual load (the analysis
+# and inference services' bucket 1), and one stream of each kind (bucket 8).
+SERVE_SMALL = {"1 camera": (8,), "4 cameras": (0, 8, 16, 24)}
+
+
+def _http_get(port: int, path: str) -> tuple[int, bytes]:
+    """One HTTP/1.1 GET over a stdlib socket: (status, body)."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+        s.sendall(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nConnection: close\r\n\r\n".encode())
+        buf = b""
+        while True:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    head, _, body = buf.partition(b"\r\n\r\n")
+    return int(head.split(b" ", 2)[1]), body
+
+
+def _http_post(port: int, path: str, body: bytes, ctype: str) -> int:
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+        s.sendall(f"POST {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nConnection: close\r\nContent-Type: {ctype}\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        buf = b""
+        while b"\r\n" not in buf:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    return int(buf.split(b" ", 2)[1])
+
+
+class WsClient:
+    """A stdlib-socket WebSocket client (RFC 6455): the handshake with its
+    accept-key check, masked text frames out, unmasked frames in (7-, 16- and
+    64-bit lengths), as ``tests/test_httpws_protocol.py`` drives the
+    server."""
+
+    GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+
+    def __init__(self, port: int, path: str):
+        import base64
+        import hashlib
+        import os
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=30)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nUpgrade: websocket\r\nConnection: Upgrade\r\n"
+                           f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n").encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            chunk = self.sock.recv(4096)
+            check(bool(chunk), f"serve: {path}: connection closed during the handshake")
+            head += chunk
+        head, _, self.buf = head.partition(b"\r\n\r\n")
+        accept = base64.b64encode(hashlib.sha1((key + self.GUID).encode()).digest())
+        check(b" 101 " in head.split(b"\r\n")[0] + b" " and accept in head,
+              f"serve: {path}: bad handshake {head[:200]!r}")
+
+    def _read(self, n: int) -> bytes:
+        while len(self.buf) < n:
+            chunk = self.sock.recv(65536)
+            check(bool(chunk), "serve: the server closed the WebSocket")
+            self.buf += chunk
+        out, self.buf = self.buf[:n], self.buf[n:]
+        return out
+
+    def send_json(self, obj) -> None:
+        import os
+        import struct
+
+        payload = json.dumps(obj).encode()
+        mask = os.urandom(4)
+        n = len(payload)
+        head = bytes([0x81]) + (bytes([0x80 | n]) if n < 126 else bytes([0x80 | 126]) + struct.pack(">H", n))
+        self.sock.sendall(head + mask + bytes(b ^ mask[i % 4] for i, b in enumerate(payload)))
+
+    def recv_json(self):
+        import struct
+
+        b0, b1 = self._read(2)
+        n = b1 & 0x7F
+        if n == 126:
+            n = struct.unpack(">H", self._read(2))[0]
+        elif n == 127:
+            n = struct.unpack(">Q", self._read(8))[0]
+        payload = self._read(n)
+        check(b0 & 0x0F == 0x1 and b0 & 0x80, f"serve: unexpected WebSocket frame 0x{b0:02x}")
+        return json.loads(payload)
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+def socket_checks(port: int, golden: dict) -> dict:
+    """The app over a real socket: health, the three pages, an upload the
+    whitelist refuses, ``/ws`` streaming states with the JAX app's keys and
+    decaying under ``set_vision frozen``, ``/ws/playground`` returning the
+    golden's replay. Blocking: run it off the server's event loop."""
+    status, body = _http_get(port, "/health")
+    check(status == 200 and json.loads(body) == {"status": "ok"}, f"serve: /health gave {status} {body[:80]!r}")
+    pages = {}
+    for path in SERVE_PAGES:
+        status, body = _http_get(port, path)
+        check(status == 200 and b"<html" in body.lower(), f"serve: GET {path} gave {status}")
+        pages[path] = len(body)
+    boundary = "smokeboundary"
+    form = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; filename=\"evil.exe\"\r\n"
+            f"Content-Type: application/octet-stream\r\n\r\nnope\r\n--{boundary}--\r\n").encode()
+    status = _http_post(port, "/api/upload-video", form, f"multipart/form-data; boundary={boundary}")
+    check(status == 400, f"serve: an .exe upload gave {status}, expected 400 (the whitelist)")
+
+    ws = WsClient(port, "/ws")
+    first = ws.recv_json()
+    missing = set(golden["ws_state_keys"]) - set(first)
+    check(not missing and first.get("source_mode") == "simulation", f"serve: /ws state lacks {sorted(missing)}")
+    ws.send_json({"action": "set_tick_rate", "rate": 60})
+    ws.send_json({"action": "set_vision", "mode": "frozen"})
+    states = [ws.recv_json() for _ in range(SERVE_FROZEN_STATES)]
+    frozen = [s["reliability"] for s in states if s.get("vision_status") == "VISION_FROZEN"]
+    check(len(frozen) >= 2 and frozen[-1] < frozen[0] < 1.0 + 1e-12,
+          f"serve: reliability under set_vision frozen {frozen[:3]} ... {frozen[-3:]}, expected to fall")
+    ws.close()
+
+    ws = WsClient(port, "/ws/playground")
+    ws.send_json({"action": "simulate_sequence", "events": golden["playground"]["events"]})
+    reply = ws.recv_json()
+    ws.close()
+    check(reply.get("type") == "simulation_result" and reply["results"] == golden["playground"]["results"],
+          "serve: /ws/playground's replay differs from the JAX golden")
+    return {"pages_bytes": pages, "frozen_reliability": [frozen[0], frozen[-1]], "frozen_states": len(frozen),
+            "playground_ticks": len(reply["results"])}
+
+
+def _pct(values, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values) * 1e3, q)) if len(values) else float("nan")
+
+
+def serve_paced_lag(states: list[list[dict]], lock_states: list[list[dict]]) -> dict:
+    """How far a paced run trails the lockstep run of the same streams:
+    ``frame_lag`` is tick t + 1 less the id of the frame whose analysis
+    tick t streamed (ids count from 1), ``onset_lag`` the ticks by which a
+    stream's first analyzed status other than VISION_OK came later than in
+    lockstep."""
+    import numpy as np
+
+    lags = [t + 1 - s["frame_id"] for t, tick in enumerate(states) for s in tick if "frame_id" in s]
+
+    def onset(sts, j):  # ticks before the first analysis stream "UNKNOWN"
+        return next((t for t, tick in enumerate(sts)
+                     if "frame_id" in tick[j] and tick[j]["vision_status"] != "VISION_OK"), None)
+
+    onsets = [onset(states, j) - onset(lock_states, j) for j in range(len(states[0]))
+              if onset(states, j) is not None and onset(lock_states, j) is not None]
+    return {"frame_lag_p99": float(np.percentile(lags, 99)) if lags else float("nan"),
+            "frame_lag_max": max(lags, default=-1), "onset_lag_max": max(onsets, default=0)}
+
+
+def check_paced_states(label: str, final: list[dict], want: list[dict], idx) -> int:
+    """A paced run's final states against the JAX app's lockstep ones: the
+    statuses equal; the policy equal or at most SERVE_POLICY_BAND steps less
+    restrictive, and VISION_ALLOWED exactly where the golden allows. Returns
+    the number of streams whose policy equals the golden's."""
+    from fav_tpu_torch.config import POLICY_ALLOWED, POLICY_CODES
+
+    exact = 0
+    for j, got, exp in zip(idx, final, want):
+        p, g = POLICY_CODES[got["policy_state"]], POLICY_CODES[exp["policy_state"]]
+        band = p == g or (g != POLICY_ALLOWED and max(POLICY_ALLOWED + 1, g - SERVE_POLICY_BAND) <= p < g)
+        check(got["vision_status"] == exp["vision_status"] and band,
+              f"serve: {label}: stream {j} ends {got}, the JAX app in lockstep {exp}")
+        exact += p == g
+    return exact
+
+
+def serve_phase(dev, profile: bool = False) -> dict:
+    """The decision-support server on the card; see the module docstring,
+    phase 10."""
+    import asyncio
+    import dataclasses
+    import socket
+
+    import numpy as np
+    import torch
+
+    from fav_tpu_torch import native
+    from fav_tpu_torch.config import DEFAULT_CONFIG, PRESETS
+    from fav_tpu_torch.io import jpeg
+    from fav_tpu_torch.models.conformal import aps_all_scores
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+    from fav_tpu_torch.serving import app
+    from fav_tpu_torch.serving.analysis import BUCKETS, AnalysisService
+    from fav_tpu_torch.serving.inference import InferenceService
+    from fav_tpu_torch.sim.frames import MONITOR_STREAMS, scripted_stream
+    from fav_tpu_torch.tools import scripted_serve as ss
+    from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR
+    from fav_tpu_torch.utils.profiling import StageTimer
+
+    golden = json.loads((WEIGHTS_DIR / "serve.golden.json").read_text())
+    check(golden["ticks"] == ss.SERVE_TICKS and golden["streams"] == [list(s) for s in MONITOR_STREAMS],
+          "serve golden is stale")
+    built = native.prebuild()  # as create_app does: no live frame waits for g++
+    check(not built["resize_area"].startswith("not built"), f"serve: the resize did not build: {built}")
+    clips = [scripted_stream(kind, i, ss.SERVE_TICKS) for kind, i in MONITOR_STREAMS]
+    camera_sets = {f"{len(clips)} cameras": tuple(range(len(clips))), **SERVE_SMALL}
+    inputs = ss.serve_golden_inputs(app._frame_for_model)
+    report = {}
+    for name, server in (("msp", {}), ("gated", PRESETS["gated"]["server"])):
+        cfg = DEFAULT_CONFIG.replace(server=dataclasses.replace(DEFAULT_CONFIG.server, **server))
+        timer = StageTimer(keep_samples=True)
+        inference = InferenceService(cfg.model, checkpoint_dir=cfg.server.checkpoint or None,
+                                     max_wait_ms=cfg.server.inference_max_wait_ms, timer=timer,
+                                     monitor_dir=cfg.server.monitor or None, device=dev)
+        analysis = AnalysisService(cfg.analyzer, cfg.video.process_height, cfg.video.process_width,
+                                   max_wait_ms=cfg.server.inference_max_wait_ms, capacity=64, timer=timer,
+                                   device=dev)
+
+        def connections(n: int) -> list:
+            conns = []
+            for _ in range(n):
+                c = app.ConnectionState(cfg, device=dev)
+                c.inference, c.analysis, c.timer = inference, analysis, timer
+                conns.append(c)
+            return conns
+
+        def release(conns) -> None:
+            for c in conns:
+                if c.analysis_slot is not None:
+                    analysis.release_slot(c.analysis_slot)
+
+        def reset_counts() -> None:
+            kern.reset_launch_counts()
+            analysis.dispatches = analysis.frames_analyzed = inference.dispatches = inference.frames_scored = 0
+            analysis.buckets = {}
+
+        def read_counts() -> dict:
+            return {"counts": kern.launch_counts(), "dispatches": analysis.dispatches,
+                    "buckets": dict(analysis.buckets), "analyzed": analysis.frames_analyzed,
+                    "scored": inference.frames_scored, "batches": inference.dispatches}
+
+        async def drive():
+            warm_s = await ss.warm_services(inference, analysis)
+            check(not inference.degraded and inference.source.startswith("checkpoint:"),
+                  f"serve: {name}: the model serves {inference.source}")
+            runs = {}
+            for label, idx in camera_sets.items():
+                sel = [clips[j] for j in idx]
+                # lockstep: every frame analyzed and scored before its tick,
+                # as the golden was written: final states comparable to the bit
+                conns = connections(len(sel))
+                reset_counts()
+                lock_states = await ss.drive_lockstep(app, conns, sel)
+                await ss.settle(inference, analysis)
+                lock = read_counts()
+                release(conns)
+                # paced: the server's own schedule, the path users run
+                conns = connections(len(sel))
+                timer.samples.clear()
+                reset_counts()
+                t = time.perf_counter()
+                states, tick_s = await ss.drive_paced(app, conns, sel)
+                run_s = time.perf_counter() - t
+                in_run = {"analyzed": analysis.frames_analyzed, "scored": inference.frames_scored}
+                # the stopped pipelines' last frames come back before the
+                # counts are read, and before the next run resets them
+                await ss.settle(inference, analysis)
+                paced = {**read_counts(), **in_run}
+                lat = {k: list(v) for k, v in timer.samples.items()}  # before the profiled ticks add theirs
+                busy = None
+                if profile and len(sel) == len(clips):
+                    busy = await profile_live(app, conns, sel, f"{name}: {len(sel)} streams, 30 paced ticks")
+                    await ss.settle(inference, analysis)
+                release(conns)
+                runs[label] = {"idx": idx, "lock_states": lock_states, "lock": lock, "states": states,
+                               "tick_s": tick_s, "run_s": run_s, "paced": paced, "lat": lat, "busy": busy}
+            rows, probs = await asyncio.to_thread(inference.score_batch, inputs)
+            await inference.close()
+            await analysis.close()
+            return warm_s, runs, rows, probs
+
+        warm_s, runs, rows, probs = asyncio.run(drive())
+        g_states = golden["deployments"][name]["states"]
+        scores = aps_all_scores(torch.from_numpy(probs)).numpy()
+        err = ss.compare_rows(rows, np.asarray(golden["deployments"][name]["rows"]), scores,
+                              inference.info().get("conformal_qhat"))
+        report[name] = {"warm_s": warm_s, "rows_max_abs_err": err, "jpeg_encoder": jpeg.last_encoder()}
+        for label, run in runs.items():
+            idx, n = run["idx"], len(run["idx"])
+            want_states = [g_states[j] for j in idx]
+            bucket = next(b for b in BUCKETS if b >= n)
+            for mode in ("lock", "paced"):
+                c = run[mode]
+                want = {k: 0 for k in c["counts"]}
+                want["frame_stats"] = c["dispatches"]
+                check(c["dispatches"] >= 1 and c["counts"] == want,
+                      f"serve: {name}: {label}: {mode} launch counts {c['counts']} over {c['dispatches']} "
+                      f"dispatched analysis batches; expected {want}")
+                check(n > 1 or c["buckets"] == {1: c["dispatches"]},
+                      f"serve: {name}: {label}: {mode} analysis batches by bucket {c['buckets']}")
+            lock = run["lock"]
+            check(lock["dispatches"] >= ss.SERVE_TICKS and lock["buckets"].get(bucket, 0) >= 1
+                  and lock["analyzed"] == lock["scored"] == ss.SERVE_TICKS * n,
+                  f"serve: {name}: {label}: lockstep {lock['dispatches']} batches by bucket {lock['buckets']}, "
+                  f"{lock['analyzed']} frames analyzed and {lock['scored']} scored; expected bucket {bucket} and "
+                  f"{ss.SERVE_TICKS * n} of each")
+            for j, got, exp in zip(idx, ss.final_states(run["lock_states"]), want_states):
+                check((got["vision_status"], got["policy_state"]) == (exp["vision_status"], exp["policy_state"])
+                      and abs(got["reliability"] - exp["reliability"]) <= SERVE_RELIABILITY_ATOL,
+                      f"serve: {name}: {label}: lockstep stream {j} {MONITOR_STREAMS[j]} ends {got}, the JAX app "
+                      f"{exp}")
+            states, tick_s, run_s, paced, lat = run["states"], run["tick_s"], run["run_s"], run["paced"], run["lat"]
+            exact = check_paced_states(f"{name}: {label}", ss.final_states(states), want_states, idx)
+            check(all("ml_inference" in s and "model_degraded" not in s for s in states[-1]),
+                  f"serve: {name}: {label}: the last tick lacks scores or says degraded")
+            lag = serve_paced_lag(states, run["lock_states"])
+            r = {
+                "streams": n, "ticks": len(tick_s), "run_s": run_s,
+                "tick_ms_p50": _pct(tick_s, 50), "tick_ms_p99": _pct(tick_s, 99),
+                "analysis_batches": paced["dispatches"], "analysis_buckets": paced["buckets"],
+                "analysis_device_ms_p50": _pct(lat.get("analysis_device", []), 50),
+                "analysis_device_ms_p99": _pct(lat.get("analysis_device", []), 99),
+                "inference_batches": paced["batches"],
+                "inference_device_ms_p50": _pct(lat.get("inference_device", []), 50),
+                "inference_device_ms_p99": _pct(lat.get("inference_device", []), 99),
+                "frame_analysis_ms_p50": _pct(lat.get("analysis", []), 50),
+                "frame_inference_ms_p50": _pct(lat.get("inference", []), 50),
+                "encode_ms_p50": _pct(lat.get("encode", []), 50),
+                "frames_scored": paced["scored"], "frames_scored_per_s": paced["scored"] / run_s,
+                "frames_analyzed": paced["analyzed"], "frames_analyzed_per_s": paced["analyzed"] / run_s,
+                "policies_equal": exact, **lag, "busy_share": run["busy"],
+                "counts": paced["counts"], "lockstep_counts": lock["counts"],
+            }
+            report[name][label] = r
+            phase("serve", f"{name}: {inference.source.split('/')[-1]}"
+                           f"{' gated by ' + inference.monitor_source.split('/')[-1] if inference.monitor_source else ''}"
+                           f"; {label}: {n} streams x {len(tick_s)} ticks at {ss.SERVE_RATE:.0f} Hz in {run_s:.3f} s: "
+                           f"K7 {paced['counts']['frame_stats']} launches = {paced['dispatches']} analysis batches "
+                           f"(by bucket {paced['buckets']}), no other kernel; statuses equal to the JAX app's, "
+                           f"policies equal in {exact} of {n} streams and within {SERVE_POLICY_BAND} step in the rest "
+                           f"(onset up to {lag['onset_lag_max']} ticks later than in lockstep, frame lag p99 "
+                           f"{lag['frame_lag_p99']:.0f} max {lag['frame_lag_max']}); in lockstep "
+                           f"({lock['dispatches']} batches by bucket {lock['buckets']}, K7 "
+                           f"{lock['counts']['frame_stats']}) final states equal to the JAX app's, reliabilities "
+                           f"within {SERVE_RELIABILITY_ATOL}")
+            phase("serve", f"{name}: {label}: tick wall p50 {r['tick_ms_p50']:.3f} ms p99 {r['tick_ms_p99']:.3f} ms; "
+                           f"analysis dispatch-to-result p50 {r['analysis_device_ms_p50']:.3f} p99 "
+                           f"{r['analysis_device_ms_p99']:.3f} ms; inference micro-batch p50 "
+                           f"{r['inference_device_ms_p50']:.3f} p99 {r['inference_device_ms_p99']:.3f} ms "
+                           f"({paced['batches']} batches); per frame: analysis {r['frame_analysis_ms_p50']:.3f}, "
+                           f"inference {r['frame_inference_ms_p50']:.3f}, encode {r['encode_ms_p50']:.3f} ms (p50); "
+                           f"{paced['scored']} frames scored ({r['frames_scored_per_s']:.1f}/s), {paced['analyzed']} "
+                           f"analyzed ({r['frames_analyzed_per_s']:.1f}/s)")
+        phase("serve", f"{name}: services warm in {warm_s:.2f} s; JPEG encoder: {jpeg.last_encoder()}; rows vs JAX: "
+                       + ", ".join(f"{k} {v:.3g}" for k, v in err.items()))
+
+    # over a real socket: the default deployment
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cfg = DEFAULT_CONFIG.replace(server=dataclasses.replace(DEFAULT_CONFIG.server, host="127.0.0.1", port=port))
+
+    async def over_socket():
+        srv = await app.create_app(cfg, device=dev).serve("127.0.0.1", port)
+        try:
+            return await asyncio.to_thread(socket_checks, port, golden)
+        finally:
+            srv.close()
+            await srv.wait_closed()
+            for task in asyncio.all_tasks():
+                if task is not asyncio.current_task():
+                    task.cancel()
+            await asyncio.sleep(0)
+
+    sock = asyncio.run(over_socket())
+    phase("serve", f"over 127.0.0.1:{port}: /health, {', '.join(SERVE_PAGES)} ({sock['pages_bytes']} bytes), the "
+                   f"upload whitelist, /ws states with the JAX app's keys, set_vision frozen: reliability "
+                   f"{sock['frozen_reliability'][0]:.6f} -> {sock['frozen_reliability'][1]:.6f} over "
+                   f"{sock['frozen_states']} states; /ws/playground's {sock['playground_ticks']} ticks equal to "
+                   f"the JAX golden")
+    report["socket"] = sock
+    runs = [r for name in ("msp", "gated") for r in report[name].values() if isinstance(r, dict) and "counts" in r]
+    for key in ("counts", "lockstep_counts"):
+        report[key] = {k: sum(r[key][k] for r in runs) for k in runs[0][key]}
+    return report
+
+
+async def profile_live(app, conns, clips, label: str) -> float | None:
+    """Device busy share of 30 paced live ticks (torch.profiler, CUPTI on
+    the card): the device time of every kernel over the window's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fav_tpu_torch.tools import scripted_serve as ss
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        await ss.drive_paced(app, conns, clips, ticks=30)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                     key=dev_us, reverse=True)
+    if not kernels:
+        phase("profile", f"{label}: no device time in the trace: not measured")
+        return None
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    phase("profile", f"{label}: device kernels {busy_ms:.3f} ms of {wall_ms:.3f} ms wall (busy share "
+                     f"{busy_ms / wall_ms:.4f}); top kernels by device time:")
+    for e in kernels[:16]:
+        print(f"           {dev_us(e) / 1e3:9.3f} ms {dev_us(e) / 1e3 / busy_ms:6.1%} x{e.count:<5d} {e.key[:100]}",
+              flush=True)
+    return busy_ms / wall_ms
 
 
 def main(argv: list[str]) -> int:
@@ -1491,6 +1963,9 @@ def main(argv: list[str]) -> int:
     ab = packed_phase(dev)
     packed_counts = ab["ab_packed"]["packed"]["launches"]
 
+    # ── 10. the decision-support server's live path and socket ────────────
+    serve = serve_phase(dev, profile="--profile" in argv)
+
     # ── report ─────────────────────────────────────────────────────────────
     pallas = "fav_tpu/ops/corruptions_pallas.py"
     csrc = "fav_tpu_torch/ops/csrc"
@@ -1534,7 +2009,8 @@ def main(argv: list[str]) -> int:
     entries.append({
         "name": "K7 frame_stats", "route": "cuda", "source": f"{csrc}/frame_stats.cu",
         "replaces": f"{signal_pallas}:51",
-        "launches": monitor["counts"]["frame_stats"] + policy["counts"]["frame_stats"],
+        "launches": monitor["counts"]["frame_stats"] + policy["counts"]["frame_stats"]
+        + serve["counts"]["frame_stats"] + serve["lockstep_counts"]["frame_stats"],
         **{k: k7_top[k] for k in keys}, "library_ms": k7_top["library_ms"],
         "library_note": "torch.bincount computes the histogram part only",
         "variants": k7_report,
@@ -1553,7 +2029,7 @@ def main(argv: list[str]) -> int:
                         "replaces": replaces, "launches": train["counts"][name], **{k: r[k] for k in keys},
                         "library_ms": r["library_ms"]})
     paths = {"megastep": counts, "monitor": monitor["counts"], "policy": policy["counts"], "train": train["counts"],
-             "packed": packed_counts}
+             "packed": packed_counts, "serve": serve["counts"], "serve_lockstep": serve["lockstep_counts"]}
     kernel_keys = {"K1 gaussian_noise": "gaussian_noise", "K2 shot_noise": "shot_noise",
                    "K3 impulse_noise": "impulse_noise", "K4 photometric": "photometric",
                    "K5 glass_resample": "glass_resample", "K5p glass_resample_packed": "glass_resample_packed",
@@ -1572,6 +2048,8 @@ def main(argv: list[str]) -> int:
                       "monitor": {k: v for k, v in monitor.items() if k != "counts"},
                       "policy_step_ms": policy["step_ms"],
                       "train": {k: v for k, v in train.items() if k != "counts"},
+                      "serve": {k: ({f: x for f, x in v.items() if not f.endswith("counts")} if isinstance(v, dict)
+                                    else v) for k, v in serve.items() if not k.endswith("counts")},
                       "packed_ab": {"median_ms": ab["median_ms"],
                                     "megastep": {arm: {k: ab["ab_packed"][arm][k]
                                                        for k in ("ms_per_megastep", "img_per_sec")}

@@ -1,1 +1,2 @@
-"""The trust scan and the policy replay of the port."""
+"""The host trust engine, failure attribution and session log, the batched
+trust scan and the policy replay."""

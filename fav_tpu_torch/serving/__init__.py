@@ -1,1 +1,2 @@
-"""Serving of the port: the batched frame-analysis service."""
+"""The decision-support app, its HTTP/WebSocket runtime, and the batched
+analysis and inference services."""

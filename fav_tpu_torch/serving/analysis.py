@@ -78,6 +78,9 @@ class AnalysisService:
         self._started = False
         self.ready = False  # True once every bucket has run once
         self.dispatches = 0  # batches analyzed, warm-up included
+        self.buckets: dict[int, int] = {}  # batches analyzed by bucket, warm-up included
+        self.frames_analyzed = 0  # frames whose results reached their caller
+        self.outstanding = 0  # frames submitted whose batch has not come back
         self._free = list(range(capacity))
         self._pending_reset: set[int] = set()
         self._carry: AnalyzerCarry | None = None  # device-resident, capacity + 1 rows
@@ -106,11 +109,17 @@ class AnalysisService:
             self._started = True
             self._worker = asyncio.get_running_loop().create_task(self._run())
 
+    def start(self) -> None:
+        """Start the worker (the carry's set-up and one launch of every
+        bucket) on the running loop; ``ready`` turns True when it is done."""
+        self._ensure_worker()
+
     async def analyze(self, frame_bgr: np.ndarray, slot: int) -> dict:
         """Submit one HxWx3 uint8 BGR frame of a claimed slot; returns the
         analysis dict."""
         self._ensure_worker()
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self.outstanding += 1
         await self._queue.put((frame_bgr, slot, fut))
         return await fut
 
@@ -168,12 +177,14 @@ class AnalysisService:
                 for i, (_, _, fut) in enumerate(batch):
                     if not fut.done():
                         fut.set_result(row_to_dict(host[i]))
+                self.frames_analyzed += len(batch)
             except Exception as e:
                 for _, _, fut in batch:
                     if not fut.done():
                         fut.set_exception(RuntimeError(f"analysis failed: {e}"))
             finally:
                 inflight_slots.difference_update(s for _, s, _ in batch)
+                self.outstanding -= len(batch)
                 inflight.release()
 
         while True:
@@ -211,6 +222,7 @@ class AnalysisService:
                 task.add_done_callback(fetch_tasks.discard)
             except Exception as e:
                 inflight.release()
+                self.outstanding -= len(batch)
                 for _, _, fut in batch:
                     if not fut.done():
                         fut.set_exception(RuntimeError(f"analysis failed: {e}"))
@@ -252,6 +264,7 @@ class AnalysisService:
         carry.has_prev.index_copy_(0, idx, new_sub.has_prev)
         carry.consecutive_frozen.index_copy_(0, idx, new_sub.consecutive_frozen)
         self.dispatches += 1
+        self.buckets[bucket] = self.buckets.get(bucket, 0) + 1
         return pack_metrics(m)
 
     def _analyze_batch(self, frames: list, slots: list, resets: set) -> list:

@@ -1,1 +1,1 @@
-"""Weights bridge from the JAX package's flax trees."""
+"""Weights bridge from the JAX package's flax trees; latency histograms and stage timers."""

@@ -194,6 +194,31 @@ def test_service_concurrent_batch_is_one_dispatch():
         assert g["metrics"]["raw"]["frame_diff"] == 10.0
 
 
+def test_service_counts_buckets_and_settles():
+    """``buckets`` counts batches by bucket (the warm-up's too) and
+    ``frames_analyzed`` the frames that came back; a caller that stops
+    waiting leaves its frame outstanding until its batch is back, and
+    ``scripted_serve.settle`` waits for that."""
+    from fav_tpu_torch.tools.scripted_serve import settle
+
+    service = _service()
+
+    async def run():
+        slot = service.acquire_slot()
+        await service.analyze(_frame(1), slot)
+        task = asyncio.get_running_loop().create_task(service.analyze(_frame(2), slot))
+        await asyncio.sleep(0)
+        outstanding = service.outstanding
+        task.cancel()
+        await settle(service)
+        await service.close()
+        return outstanding
+
+    assert asyncio.run(run()) == 1
+    assert service.outstanding == 0 and service.frames_analyzed == 2
+    assert service.buckets == {1: 3, 8: 1, 32: 1} and service.dispatches == len(BUCKETS) + 2
+
+
 def test_slot_reuse_resets_temporal_state():
     """release then acquire hands the slot to a new stream: the old
     stream's previous frame does not leak into it."""

@@ -223,3 +223,27 @@ def test_nothing_launches_at_import():
     # on a CPU-only machine nothing is ever built, loaded or bound
     assert all(k._fn is None for k in corruptions_cuda.KERNELS.values())
     assert not _build._loaded
+
+
+def test_native_builds_under_build_and_never_in_the_source_tree():
+    """The resize and JPEG libraries build with g++ into build/native/ of
+    the repository at first use (or at prebuild), never beside their
+    sources; importing the package builds nothing."""
+    out = subprocess.run([sys.executable, "-c", "import fav_tpu_torch.serving.app, fav_tpu_torch.native as n; "
+                          "print(len(n._libs), len(n._errors))"],
+                         cwd=REPO, env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.split() == ["0", "0"], out.stderr
+    from fav_tpu_torch import native
+
+    before = sorted(p for p in PACKAGE.rglob("*") if "__pycache__" not in p.parts)
+    built = native.prebuild()
+    assert native.build_dir() == REPO / "build" / "native"
+    for name in ("resize_area", "jpegio"):
+        path = native.lib_path(name)
+        assert path.parent == REPO / "build" / "native" and path.name.startswith(name + "-")
+        if not built[name].startswith("not built"):
+            assert path.is_file() and built[name] == str(path)
+    assert not built["resize_area"].startswith("not built"), built  # needs g++ only, never libjpeg
+    assert sorted(p for p in PACKAGE.rglob("*") if "__pycache__" not in p.parts) == before
+    assert not [p for p in PACKAGE.rglob("*") if p.suffix in (".so", ".o")]
+    assert "-ljpeg" not in " ".join(native.CXX_FLAGS + native._LINK["resize_area"])
