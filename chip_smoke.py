@@ -9,7 +9,8 @@ and its socket, run the 15x5 evaluation grid through the port's CLI, then
 the other model families and the multi-forward scorers in the server and
 the grid, train every remaining objective (SAM, DeepAugment, the AugMix
 options, ensembles, KD, MC distillation, the autoencoder) and the pretrain
-CLI, and report.
+CLI, serve the Mahalanobis feature distance and run the fit and replay
+tools, quantise to int8, and report.
 
     python3 chip_smoke.py             # what the checks run
     python3 chip_smoke.py --profile   # adds torch.profiler tables of one megastep, one analyzer batch,
@@ -191,7 +192,43 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                ms a step, training images a second and the split into views
                or teacher targets, forward+backward and the optimizer (CUDA
                events); then the pretrain CLI in seven modes for 2 steps,
-               its weights read back by ``load_weights``.
+               its weights read back by ``load_weights``;
+14. maha    -- the server's Mahalanobis column: copies of ``student_nano``
+               and ``student_std`` in a temporary directory, each with the
+               fit ``fav_tpu`` wrote (``weights/<stem>.maha_golden.npz``)
+               beside it as ``<stem>.maha_fit.npz``; the shipped ``msp``,
+               ``msp`` with the fit and ``gated`` with the fit driven as in
+               phase 10 over the 32 streams (K7 once per analysis batch and
+               no other kernel; final states equal to the JAX app's; the
+               rows but the distance against ``serve.golden.json``), the
+               distance in column 6 (7 under ``gated``) of every last
+               tick's scores and on the golden's frames within
+               ``MAHA_FDIST_ATOL`` of ``fav_tpu``'s (``weights/
+               maha.golden.json``), the inference micro-batch p50 with and
+               without the column; a stale fit (another width) warned about
+               and left out; ``create_app`` with the fit on 127.0.0.1: a
+               live stream (a stand-in source) carrying
+               ``ml_inference.feature_distance``, then ``/api/metrics``
+               saying ``feature_distance``, a simulation session's
+               ``get_log`` CSV replayed by ``fav_tpu_torch.tools.replay``
+               (exit 0; with one reliability moved, exit 1 at that row); then
+               ``fav_tpu_torch.tools.fit_maha`` on ``student_nano`` at
+               10240 images, its wall time, its quantiles against
+               ``fav_tpu``'s fit within ``MAHA_QUANTILE_SPAN_RTOL`` of the
+               span;
+15. quant   -- W8A8 quantisation (``models/quant.py``): the ``classifier``
+               calibrated on 256 synthetic test images, over 1024 of them
+               int8 accuracy at least the bf16 forward's less 0.01 and mean
+               |d confidence| under 0.02 (``tests/test_quant.py``'s
+               bounds); the ``im2col`` (``torch._int_mm``) and ``conv``
+               (float64) int32 outputs equal to the bit on every quantised
+               layer of ``classifier`` and ``student_nano`` at batch 64; the
+               quantised nano on its golden images against ``fav_tpu``'s
+               (``weights/quant.golden.json``: scales within two bf16 steps,
+               logits under its scales within 0.125, argmax on clear
+               margins); the bf16, int8 ``im2col`` and int8 ``conv``
+               forwards of ``student_nano`` at batch 6144 and
+               ``classifier`` at 2048, timed; no hand kernel launched.
 
 The line before the last is one JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -1961,8 +1998,12 @@ def serve_deployments(dev, deployments, camera_sets: dict, golden: dict, profile
     """Drive each deployment ``(name, server settings)`` of the server's
     live path on the card over each camera set (lockstep, then paced) and
     hold it to ``golden`` (``weights/serve.golden.json``): launch counts,
-    final states, the rows of ``score_batch`` (``compare_served_rows``).
-    Returns the report per deployment, with the summed counts."""
+    final states, the rows of ``score_batch`` (``compare_served_rows``). A
+    third element names the golden's deployment where it is not ``name``.
+    A deployment that serves a feature distance streams it in every last
+    state, and its column is held apart from the golden's rows: the report
+    keeps it under ``feature_distance``. Returns the report per deployment,
+    with the summed counts."""
     import asyncio
     import dataclasses
 
@@ -1986,7 +2027,8 @@ def serve_deployments(dev, deployments, camera_sets: dict, golden: dict, profile
     clips = [scripted_stream(kind, i, ss.SERVE_TICKS) for kind, i in MONITOR_STREAMS]
     inputs = ss.serve_golden_inputs(app._frame_for_model)
     report = {}
-    for name, server in deployments:
+    for name, server, *golden_name in deployments:
+        golden_name = golden_name[0] if golden_name else name
         cfg = DEFAULT_CONFIG.replace(server=dataclasses.replace(DEFAULT_CONFIG.server, **server))
         timer = StageTimer(keep_samples=True)
         inference = InferenceService(cfg.model, checkpoint_dir=cfg.server.checkpoint or None,
@@ -2063,9 +2105,14 @@ def serve_deployments(dev, deployments, camera_sets: dict, golden: dict, profile
             return warm_s, runs, rows, probs
 
         warm_s, runs, rows, probs = asyncio.run(drive())
-        g_states = golden["deployments"][name]["states"]
-        err = ss.compare_served_rows(inference, rows, probs, np.asarray(golden["deployments"][name]["rows"]))
-        report[name] = {"warm_s": warm_s, "rows_max_abs_err": err, "jpeg_encoder": jpeg.last_encoder()}
+        g_states = golden["deployments"][golden_name]["states"]
+        fd_col = inference._col_rmd
+        fdist = None if fd_col is None else rows[:, fd_col].tolist()
+        if fd_col is not None:
+            rows = np.delete(rows, fd_col, axis=1)
+        err = ss.compare_served_rows(inference, rows, probs, np.asarray(golden["deployments"][golden_name]["rows"]))
+        report[name] = {"warm_s": warm_s, "rows_max_abs_err": err, "jpeg_encoder": jpeg.last_encoder(),
+                        "feature_distance_column": fd_col, "feature_distance": fdist}
         for label, run in runs.items():
             idx, n = run["idx"], len(run["idx"])
             want_states = [g_states[j] for j in idx]
@@ -2094,6 +2141,8 @@ def serve_deployments(dev, deployments, camera_sets: dict, golden: dict, profile
             exact = check_paced_states(f"{name}: {label}", ss.final_states(states), want_states, idx)
             check(all("ml_inference" in s and "model_degraded" not in s for s in states[-1]),
                   f"serve: {name}: {label}: the last tick lacks scores or says degraded")
+            check(all(("feature_distance" in s["ml_inference"]) == (fd_col is not None) for s in states[-1]),
+                  f"serve: {name}: {label}: feature_distance in the last tick's scores, column {fd_col}")
             lag = serve_paced_lag(states, run["lock_states"])
             r = {
                 "streams": n, "ticks": len(tick_s), "run_s": run_s,
@@ -2135,7 +2184,7 @@ def serve_deployments(dev, deployments, camera_sets: dict, golden: dict, profile
         phase(label_phase, f"{name}: services warm in {warm_s:.2f} s; JPEG encoder: {jpeg.last_encoder()}; rows vs JAX: "
                        + ", ".join(f"{k} {v:.3g}" for k, v in err.items()))
 
-    runs = [r for name, _ in deployments for r in report[name].values() if isinstance(r, dict) and "counts" in r]
+    runs = [r for name, *_ in deployments for r in report[name].values() if isinstance(r, dict) and "counts" in r]
     for key in ("counts", "lockstep_counts"):
         report[key] = {k: sum(r[key][k] for r in runs) for k in runs[0][key]}
     return report
@@ -2633,6 +2682,398 @@ def families_phase(dev, ds) -> dict:
     return report
 
 
+# ── phase 14: the server's Mahalanobis column, the fit and replay tools ───
+
+# The served feature distance on the golden's frames against fav_tpu's
+# jitted service (weights/maha.golden.json): on the CPU the port lies
+# 0.016 (msp) and 0.020 (gated) off; the bound leaves about five times
+# that for cuDNN's bf16 (tests/test_torch_maha_serving.py).
+MAHA_FDIST_ATOL = 0.1
+# The fit tool's quantiles on the card against fav_tpu's tool, relative to
+# the span q99 - q50 that scales the wire's distance: the features differ
+# only by the bf16 forward (fav_tpu collects them under jit), and q50 is a
+# small difference of two quadratic forms (3.09 of a span of 31.93 for
+# student_nano), so its own relative error says little. On the CPU the
+# port's tool lies 0.0051 (q50) and 0.0070 (q99) of the span from the
+# golden's; the bound leaves about four times that for cuDNN's bf16.
+MAHA_QUANTILE_SPAN_RTOL = 0.03
+MAHA_FIT_IMAGES = 10240
+MAHA_LIVE_LIMIT_S = 60.0  # for the live /ws stream to carry a scored frame
+REPLAY_TAMPER_ROW = 30
+
+
+class LoopVideo:
+    """A stand-in live source for the app's socket check: ``start`` takes
+    any path, and each ``get_frame`` gives the next frame of one scripted
+    clip with a new id, as a camera would."""
+
+    def __init__(self, params=None):
+        from fav_tpu_torch.sim.frames import MONITOR_STREAMS, scripted_stream
+
+        self.clip = scripted_stream(*MONITOR_STREAMS[0], 30)
+        self.frame_id = 0
+        self.running = False
+
+    def start(self, source=0) -> bool:
+        self.running = True
+        return True
+
+    def get_frame(self):
+        if not self.running:
+            return None, 0
+        self.frame_id += 1
+        return self.clip[self.frame_id % len(self.clip)].copy(), self.frame_id
+
+    def stop(self) -> None:
+        self.running = False
+
+
+def replay_checks(csv_text: str, tmp: str) -> dict:
+    """``fav_tpu_torch.tools.replay`` on a session CSV the app logged: exit 0;
+    a copy with one reliability moved by 0.2 exits 1 and names its row."""
+    import contextlib
+    import io
+    import os
+
+    from fav_tpu_torch.tools import replay
+
+    def run(text: str, name: str) -> tuple[int, dict]:
+        path = os.path.join(tmp, name)
+        with open(path, "w", newline="") as f:
+            f.write(text)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = replay.main([path])
+        return rc, json.loads(out.getvalue())
+
+    rc, clean = run(csv_text, "session.csv")
+    check(rc == 0 and clean["rows"] > REPLAY_TAMPER_ROW,
+          f"maha: replay of the app's session CSV exited {rc}: {clean}")
+    lines = csv_text.split("\r\n")
+    col = lines[0].split(",").index("reliability")
+    row = lines[REPLAY_TAMPER_ROW].split(",")
+    row[col] = f"{float(row[col]) - 0.2:.6f}"
+    lines[REPLAY_TAMPER_ROW] = ",".join(row)
+    rc_bad, bad = run("\r\n".join(lines), "tampered.csv")
+    check(rc_bad == 1 and (bad["first_gross_divergence"] or {}).get("row") == REPLAY_TAMPER_ROW,
+          f"maha: the tampered session exited {rc_bad}: {bad}")
+    return {"rows": clean["rows"], "max_dev": clean["max_dev"], "tampered_row": REPLAY_TAMPER_ROW}
+
+
+def maha_socket_checks(port: int, tmp: str) -> dict:
+    """The app with a fit over a real socket: a live stream
+    (:class:`LoopVideo`) carries ``ml_inference.feature_distance``, after
+    which (the model is built at first use) ``/api/metrics`` says the
+    column is served; a simulation session's ``get_log`` CSV replays clean
+    and a tampered copy does not. Blocking: run it off the loop."""
+    ws = WsClient(port, "/ws")
+    ws.send_json({"action": "set_tick_rate", "rate": 60})
+    ws.send_json({"action": "set_source_mode", "mode": "video", "filepath": str(REPO_DIR / "chip_smoke.py")})
+    t0 = time.perf_counter()
+    scored = None
+    while scored is None and time.perf_counter() - t0 < MAHA_LIVE_LIMIT_S:
+        msg = ws.recv_json()
+        if "feature_distance" in msg.get("ml_inference", {}):
+            scored = msg
+    live_s = time.perf_counter() - t0
+    ws.close()
+    check(scored is not None, f"maha: no live state carried ml_inference.feature_distance in {MAHA_LIVE_LIMIT_S} s")
+    fd = scored["ml_inference"]["feature_distance"]
+    check(fd >= 0.0 and fd == round(fd, 4), f"maha: the live feature_distance {fd}")
+    status, body = _http_get(port, "/api/metrics")
+    info = json.loads(body)["inference"]
+    check(status == 200 and info.get("feature_distance") is True, f"maha: /api/metrics inference {info}")
+
+    ws = WsClient(port, "/ws")
+    ws.send_json({"action": "set_tick_rate", "rate": 60})
+    ws.send_json({"action": "set_vision", "mode": "frozen"})
+    for _ in range(SERVE_FROZEN_STATES):
+        ws.recv_json()
+    ws.send_json({"action": "set_vision", "mode": "normal"})
+    for _ in range(SERVE_FROZEN_STATES):
+        ws.recv_json()
+    ws.send_json({"action": "get_log"})
+    log = ws.recv_json()
+    while log.get("type") != "log_data":
+        log = ws.recv_json()
+    ws.close()
+    return {"live_feature_distance": fd, "live_s": live_s, "metrics_feature_distance": True,
+            "replay": replay_checks(log["csv"], tmp)}
+
+
+def maha_phase(dev, ds) -> dict:
+    """The served Mahalanobis column, the fit tool and the replay tool; see
+    the module docstring, phase 14."""
+    import asyncio
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fav_tpu_torch.config import DEFAULT_CONFIG
+    from fav_tpu_torch.models.mahalanobis import load_fit, save_fit
+    from fav_tpu_torch.serving import app
+    from fav_tpu_torch.serving.inference import MAHA_FIT_SUFFIX, InferenceService
+    from fav_tpu_torch.sim.frames import MONITOR_STREAMS
+    from fav_tpu_torch.tools import fit_maha
+    from fav_tpu_torch.tools import scripted_serve as ss
+    from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR
+
+    golden = json.loads((WEIGHTS_DIR / "maha.golden.json").read_text())
+    serve_golden = json.loads((WEIGHTS_DIR / "serve.golden.json").read_text())
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        stems = {}
+        for name in ("student_nano", "student_std"):
+            stems[name] = str(Path(tmp) / name)
+            for ext in (".npz", ".metadata.json"):
+                shutil.copy(WEIGHTS_DIR / f"{name}{ext}", stems[name] + ext)
+            shutil.copy(WEIGHTS_DIR / golden["fits"][name]["file"], stems[name] + MAHA_FIT_SUFFIX)
+        deployments = (
+            ("msp", {}),
+            ("msp+fit", {"checkpoint": stems["student_nano"]}, "msp"),
+            ("gated+fit", {"checkpoint": stems["student_std"], "monitor": stems["student_nano"]}, "gated"),
+        )
+        streams = {f"{len(MONITOR_STREAMS)} cameras": tuple(range(len(MONITOR_STREAMS)))}
+        served = serve_deployments(dev, deployments, streams, serve_golden, label_phase="maha")
+        check(served["msp"]["feature_distance"] is None, "maha: the shipped msp deployment serves a distance")
+        label = next(iter(streams))
+        for name, want_name in (("msp+fit", "msp"), ("gated+fit", "gated")):
+            want = golden["deployments"][want_name]
+            got = np.asarray(served[name]["feature_distance"], np.float64)
+            err = float(np.abs(got - np.asarray(want["feature_distance"])).max())
+            check(served[name]["feature_distance_column"] == want["column"] and np.isfinite(got).all()
+                  and err <= MAHA_FDIST_ATOL,
+                  f"maha: {name}: feature_distance in column {served[name]['feature_distance_column']}, max "
+                  f"|port - fav_tpu| {err} (bound {MAHA_FDIST_ATOL}, column {want['column']})")
+            report[name] = {"column": want["column"], "max_abs_err": err}
+            phase("maha", f"{name}: feature_distance in column {want['column']} of the packed row, streamed in "
+                          f"every stream's last tick; on the golden's {len(got)} frames max |port - fav_tpu| "
+                          f"{err:.4f} (bound {MAHA_FDIST_ATOL}), mean {got.mean():.4f}")
+        p50 = {name: served[name][label]["inference_device_ms_p50"] for name in ("msp", "msp+fit", "gated+fit")}
+        p99 = {name: served[name][label]["inference_device_ms_p99"] for name in ("msp", "msp+fit", "gated+fit")}
+        report["inference_ms_p50"], report["inference_ms_p99"] = p50, p99
+        report["frames_scored_per_s"] = {name: served[name][label]["frames_scored_per_s"] for name in p50}
+        report["counts"] = served["counts"]
+        report["lockstep_counts"] = served["lockstep_counts"]
+        phase("maha", f"{label}, inference micro-batch p50 (p99): without the column {p50['msp']:.3f} "
+                      f"({p99['msp']:.3f}) ms, with it {p50['msp+fit']:.3f} ({p99['msp+fit']:.3f}) ms, gated with "
+                      f"it {p50['gated+fit']:.3f} ({p99['gated+fit']:.3f}) ms; frames scored a second "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in report["frames_scored_per_s"].items()))
+
+        # a stale fit, of another width: said on stderr, left out
+        stale = str(Path(tmp) / "stale")
+        for ext in (".npz", ".metadata.json"):
+            shutil.copy(stems["student_nano"] + ext, stale + ext)
+        fit = load_fit(stems["student_nano"] + MAHA_FIT_SUFFIX)
+        save_fit(stale + MAHA_FIT_SUFFIX, dataclasses.replace(
+            fit, class_means=fit.class_means[:, :32], prec=fit.prec[:32, :32], bg_mean=fit.bg_mean[:32],
+            bg_prec=fit.bg_prec[:32, :32]))
+        err_out = io.StringIO()
+        svc = InferenceService(checkpoint_dir=stale, device=dev)
+        with contextlib.redirect_stderr(err_out):
+            rows, _ = svc.score_batch(ss.serve_golden_inputs(app._frame_for_model)[:2])
+        check("stale fit" in err_out.getvalue() and not svc.has_feature_distance and rows.shape == (2, 6)
+              and "feature_distance" not in svc.info(),
+              f"maha: a stale fit gave rows {rows.shape}, info {svc.info()}, stderr {err_out.getvalue()!r}")
+        phase("maha", "a stale fit (32 of 64 features): warned about on stderr, served without the column")
+
+        # the app with the fit, over a real socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        cfg = DEFAULT_CONFIG.replace(server=dataclasses.replace(
+            DEFAULT_CONFIG.server, host="127.0.0.1", port=port, checkpoint=stems["student_nano"]))
+
+        async def over_socket():
+            srv = await app.create_app(cfg, device=dev).serve("127.0.0.1", port)
+            try:
+                return await asyncio.to_thread(maha_socket_checks, port, tmp)
+            finally:
+                srv.close()
+                await srv.wait_closed()
+                for task in asyncio.all_tasks():
+                    if task is not asyncio.current_task():
+                        task.cancel()
+                await asyncio.sleep(0)
+
+        real_video = app.VideoSource
+        app.VideoSource = LoopVideo
+        try:
+            sock = asyncio.run(over_socket())
+        finally:
+            app.VideoSource = real_video
+        report["socket"] = sock
+        phase("maha", f"over 127.0.0.1:{port}: a live /ws stream carried ml_inference.feature_distance "
+                      f"{sock['live_feature_distance']} after {sock['live_s']:.2f} s, then /api/metrics said "
+                      f"feature_distance; tools/replay.py on the app's get_log CSV of "
+                      f"{sock['replay']['rows']} simulation ticks: exit 0, max deviations {sock['replay']['max_dev']}; "
+                      f"one reliability moved by 0.2: exit 1 at row {sock['replay']['tampered_row']}")
+
+        # the fit tool on the card, against the golden's fav_tpu fit
+        t = time.perf_counter()
+        fitted = fit_maha.fit_checkpoint(stems["student_nano"], MAHA_FIT_IMAGES, str(Path(tmp) / "fit.npz"),
+                                         device=dev, dataset=ds)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        want = golden["fits"]["student_nano"]
+        span = want["rmd_q99"] - want["rmd_q50"]
+        rel = {k: abs(fitted[f"{k}_exact"] - want[k]) / span for k in ("rmd_q50", "rmd_q99")}
+        check(fitted["fit_images"] == want["fit_images"] and fitted["feature_dim"] == want["feature_dim"]
+              and max(rel.values()) <= MAHA_QUANTILE_SPAN_RTOL,
+              f"maha: fit_maha on the card {fitted} against fav_tpu's {want} (relative to the span {rel})")
+        report["fit"] = {"wall_s": fit_s, "rmd_q50": fitted["rmd_q50_exact"], "rmd_q99": fitted["rmd_q99_exact"],
+                         "rel_err": rel}
+        phase("maha", f"fav_tpu_torch.tools.fit_maha on student_nano, {MAHA_FIT_IMAGES} images: {fit_s:.3f} s wall; "
+                      f"rmd_q50 {fitted['rmd_q50_exact']:.4f} rmd_q99 {fitted['rmd_q99_exact']:.4f} against "
+                      f"fav_tpu's {want['rmd_q50']:.4f} {want['rmd_q99']:.4f} (off by {rel['rmd_q50']:.2e} and "
+                      f"{rel['rmd_q99']:.2e} of the span; bound {MAHA_QUANTILE_SPAN_RTOL})")
+    return report
+
+
+# ── phase 15: W8A8 quantisation ────────────────────────────────────────────
+
+QUANT_CALIB = 256
+QUANT_EVAL = 1024
+QUANT_ACC_DROP = 0.01  # tests/test_quant.py:136
+QUANT_CONF_MAE = 0.02  # tests/test_quant.py:140
+QUANT_EQUAL_BATCH = 64
+# The quantised nano's logits on the golden images under fav_tpu's own
+# calibration (weights/quant.golden.json): the nano golden's logit bound
+# (tests/test_torch_quant.py), argmax held on clear margins as in phase 4.
+QUANT_GOLDEN_ATOL = 0.125
+# A calibrated scale against fav_tpu's jitted one: within one bf16 step
+# (2^-7) on the CPU (tests/test_torch_quant.py); cuDNN sums in yet another
+# order, so two steps here.
+QUANT_SCALE_RTOL = 2 * 2.0 ** -7
+QUANT_TIMED = {"student_nano": 6144, "classifier": 2048}
+QUANT_REPS = 5
+
+
+def int8_layers_equal(q, x) -> int:
+    """Run ``x`` through ``q`` by the ``conv`` route, recording each int8
+    convolution's inputs, and hold ``im2col`` to it on each: returns the
+    number of quantised layers, all equal to the bit."""
+    import torch
+
+    from fav_tpu_torch.models import quant as tq
+
+    calls = []
+    real = tq._conv_int8
+
+    def record(xi, k, stride):
+        out = real(xi, k, stride)
+        calls.append((xi, k, stride, out))
+        return out
+
+    tq._conv_int8 = record
+    try:
+        tq.quantized_forward(q, x, "conv")
+    finally:
+        tq._conv_int8 = real
+    for i, (xi, k, stride, out) in enumerate(calls):
+        got = tq._conv_im2col_int8(xi, k, stride)
+        check(got.dtype == out.dtype == torch.int32 and torch.equal(got, out),
+              f"quant: layer {i + 1} ({tuple(xi.shape)} x {tuple(k.shape)}, stride {stride}): im2col and conv differ")
+    return len(calls)
+
+
+def quant_phase(dev, ds) -> dict:
+    """W8A8 quantisation of the shipped weights; see the module docstring,
+    phase 15."""
+    import numpy as np
+    import torch
+
+    from fav_tpu_torch.models import quant as tq
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+    from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR, load_student
+
+    report = {}
+    kern.reset_launch_counts()
+    # accuracy and confidence of the int8 classifier against its bf16 forward
+    model, _ = load_student("classifier", device=dev)
+    x = torch.from_numpy(ds.test_images[:QUANT_EVAL]).to(dev)
+    y = torch.from_numpy(ds.test_labels[:QUANT_EVAL]).to(dev).long()
+    q = tq.quantize_cnn(model, x[:QUANT_CALIB])
+    with torch.no_grad():
+        fp = model(x)
+    conv, im2col = tq.quantized_forward(q, x, "conv"), tq.quantized_forward(q, x, "im2col")
+    check(bool(torch.isfinite(conv).all()) and torch.equal(conv, im2col),
+          "quant: classifier int8 logits non-finite, or the two routes differ")
+    fp_acc = float((fp.argmax(-1) == y).float().mean())
+    q_acc = float((conv.argmax(-1) == y).float().mean())
+    conf_mae = float((fp.softmax(-1).amax(-1) - conv.softmax(-1).amax(-1)).abs().mean())
+    check(q_acc >= fp_acc - QUANT_ACC_DROP and conf_mae < QUANT_CONF_MAE,
+          f"quant: int8 accuracy {q_acc} against bf16 {fp_acc} (drop limit {QUANT_ACC_DROP}), mean |d conf| "
+          f"{conf_mae} (limit {QUANT_CONF_MAE})")
+    report["classifier"] = {"fp_accuracy": fp_acc, "int8_accuracy": q_acc, "conf_mae": conf_mae,
+                            "act_scales": q.act_scales.tolist()}
+    phase("quant", f"classifier calibrated on {QUANT_CALIB} test images: over {QUANT_EVAL}, int8 accuracy {q_acc:.4f} "
+                   f"against bf16 {fp_acc:.4f} (drop limit {QUANT_ACC_DROP}), mean |d confidence| {conf_mae:.5f} "
+                   f"(limit {QUANT_CONF_MAE}); im2col and conv logits equal")
+
+    # both int8 routes on every quantised layer, to the bit
+    nano, _ = load_student("student_nano", device=dev)
+    qn = tq.quantize_cnn(nano, x[:QUANT_CALIB])
+    layers = {name: int8_layers_equal(qq, x[:QUANT_EQUAL_BATCH]) for name, qq in (("classifier", q),
+                                                                                  ("student_nano", qn))}
+    report["int8_layers_equal"] = layers
+    phase("quant", f"im2col (torch._int_mm) and conv (float64) int32 outputs equal to the bit at batch "
+                   f"{QUANT_EQUAL_BATCH} on every quantised layer: " + ", ".join(f"{k} {v}" for k, v in layers.items()))
+
+    # the quantised nano against fav_tpu's golden
+    golden = json.loads((WEIGHTS_DIR / "quant.golden.json").read_text())
+    ng = json.loads((WEIGHTS_DIR / "student_nano.golden.json").read_text())
+    gimg = torch.from_numpy(np.random.default_rng(ng["seed"]).random(tuple(ng["shape"]), dtype=np.float32)).to(dev)
+    qg = tq.quantize_cnn(nano, gimg)
+    want_scales = np.asarray(golden["act_scales"], np.float64)
+    scale_rel = float(np.abs(qg.act_scales.double().cpu().numpy() / want_scales - 1.0).max())
+    check(scale_rel <= QUANT_SCALE_RTOL, f"quant: nano scales {qg.act_scales.tolist()} against fav_tpu's {want_scales}")
+    qg = qg._replace(act_scales=torch.tensor(golden["act_scales"], dtype=torch.float32, device=dev))
+    want = np.asarray(golden["logits"], np.float32)
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * QUANT_GOLDEN_ATOL
+    errs = {}
+    for algo in tq.INT8_ALGOS:
+        got = tq.quantized_forward(qg, gimg, algo).cpu().numpy()
+        errs[algo] = float(np.abs(got - want).max())
+        check(np.isfinite(got).all() and errs[algo] <= QUANT_GOLDEN_ATOL
+              and bool((got.argmax(-1) == want.argmax(-1))[clear].all()),
+              f"quant: nano {algo} logits against fav_tpu's golden: max diff {errs[algo]} (bound "
+              f"{QUANT_GOLDEN_ATOL}), argmax {got.argmax(-1)} vs {want.argmax(-1)}")
+    report["golden"] = {"scale_rel": scale_rel, "max_abs_err": errs, "argmax_held": int(clear.sum())}
+    phase("quant", f"nano calibrated on the golden's {len(want)} images: scales within {scale_rel:.2e} of fav_tpu's "
+                   f"(bound {QUANT_SCALE_RTOL:.2e}, two bf16 steps); under fav_tpu's scales int8 logits max |port - fav_tpu| "
+                   + ", ".join(f"{k} {v:.4f}" for k, v in errs.items())
+                   + f" (bound {QUANT_GOLDEN_ATOL}), argmax equal on the {int(clear.sum())} images with a clear margin")
+
+    # times: the bf16 forward and the two int8 forwards
+    times = {}
+    for name, batch in QUANT_TIMED.items():
+        m = nano if name == "student_nano" else model
+        qq = qn if name == "student_nano" else q
+        xb = torch.rand((batch, 32, 32, 3), generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        with torch.no_grad():
+            times[name] = {"batch": batch,
+                           "bf16_ms": time_ms(lambda: m(xb), reps=QUANT_REPS),
+                           "int8_im2col_ms": time_ms(lambda: tq.quantized_forward(qq, xb, "im2col"), reps=QUANT_REPS),
+                           "int8_conv_ms": time_ms(lambda: tq.quantized_forward(qq, xb, "conv"), reps=QUANT_REPS)}
+        t_ = times[name]
+        phase("quant", f"{name} at batch {batch} (CUDA events, mean of {QUANT_REPS}): bf16 forward "
+                       f"{t_['bf16_ms']:.3f} ms, int8 im2col {t_['int8_im2col_ms']:.3f} ms, int8 conv (float64) "
+                       f"{t_['int8_conv_ms']:.3f} ms")
+        del xb
+    report["times"] = times
+    counts = kern.launch_counts()
+    check(not any(counts.values()), f"quant: a hand kernel launched: {counts}")
+    return report
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -2978,6 +3419,12 @@ def main(argv: list[str]) -> int:
     # ── 13. the remaining trainers and the pretrain CLI ────────────────────
     trainers = trainers_phase(dev, ds)
 
+    # ── 14. the server's Mahalanobis column, the fit and replay tools ─────
+    maha = maha_phase(dev, ds)
+
+    # ── 15. W8A8 quantisation ──────────────────────────────────────────────
+    quant = quant_phase(dev, ds)
+
     # ── report ─────────────────────────────────────────────────────────────
     pallas = "fav_tpu/ops/corruptions_pallas.py"
     csrc = "fav_tpu_torch/ops/csrc"
@@ -3025,7 +3472,8 @@ def main(argv: list[str]) -> int:
         "replaces": f"{signal_pallas}:51",
         "launches": monitor["counts"]["frame_stats"] + policy["counts"]["frame_stats"]
         + serve["counts"]["frame_stats"] + serve["lockstep_counts"]["frame_stats"] + grid_counts["frame_stats"]
-        + fam_serve["counts"]["frame_stats"] + fam_serve["lockstep_counts"]["frame_stats"],
+        + fam_serve["counts"]["frame_stats"] + fam_serve["lockstep_counts"]["frame_stats"]
+        + maha["counts"]["frame_stats"] + maha["lockstep_counts"]["frame_stats"],
         **{k: k7_top[k] for k in keys}, "library_ms": k7_top["library_ms"],
         "library_note": "torch.bincount computes the histogram part only",
         "variants": k7_report,
@@ -3051,6 +3499,7 @@ def main(argv: list[str]) -> int:
              "packed": packed_counts, "serve": serve["counts"], "serve_lockstep": serve["lockstep_counts"],
              "grid": grid["counts"], "grid_gated": grid["gated_counts"],
              "families_serve": fam_serve["counts"], "families_serve_lockstep": fam_serve["lockstep_counts"],
+             "maha": maha["counts"], "maha_lockstep": maha["lockstep_counts"],
              **{f"families_grid_{k}": c for k, c in families["counts"].items()},
              **{f"trainers_{k}": c for k, c in trainers["recipe_counts"].items()}}
     kernel_keys = {"K1 gaussian_noise": "gaussian_noise", "K2 shot_noise": "shot_noise",
@@ -3083,6 +3532,7 @@ def main(argv: list[str]) -> int:
                                                          if isinstance(r, dict) else r)
                                                  for label, r in fam_serve[m].items()}
                                              for m in FAMILY_SERVE_MODES}},
+                      "maha": {k: v for k, v in maha.items() if not k.endswith("counts")}, "quant": quant,
                       "packed_ab": {"median_ms": ab["median_ms"],
                                     "megastep": {arm: {k: ab["ab_packed"][arm][k]
                                                        for k in ("ms_per_megastep", "img_per_sec")}

@@ -16,9 +16,10 @@ Counterpart of ``fav_tpu/serving/inference.py``:
 The packed row's columns are prediction, operative confidence, anomaly,
 entropy, mutual information and conformal set size (-1 without a
 calibrated ``conformal_qhat``); with a monitor, a seventh holds the
-predictor's own confidence. The monitor's confidence min-gates the
-predictor's, and the monitor must restore: a bad ``monitor_dir`` fails the
-service instead of gating with noise.
+predictor's own confidence; with a Mahalanobis fit, the last holds the
+feature distance (column 6, or 7 under a monitor). The monitor's
+confidence min-gates the predictor's, and the monitor must restore: a bad
+``monitor_dir`` fails the service instead of gating with noise.
 
 The four modes (``uncertainty=``), each with its default weights under
 ``weights/``:
@@ -39,9 +40,18 @@ Missing weights serve a random initialisation marked ``degraded``. In the
 ``mc_dropout``, ``ensemble`` and ``autoencoder`` modes weights that exist
 but do not load raise, and so does an ensemble copy whose member count
 differs from its metadata's (``utils/checkpoint.py:load_weights``): the
-worker then fails every frame it is given. A checkpoint that ships a
-Mahalanobis fit (``<stem>.maha_fit.npz``) raises ``NotImplementedError``:
-the server's feature-distance column is ROADMAP.md Queue 1 item 8.
+worker then fails every frame it is given.
+
+The feature distance (``fav_tpu/serving/inference.py:203-251,317-334``):
+in ``msp`` mode, weights that loaded and carry a Mahalanobis fit beside
+them (``<stem>.maha_fit.npz``, written by ``fav_tpu_torch.tools.fit_maha``
+or by ``fav_tpu``'s ``tools/fit_maha.py``) stream ``feature_distance``,
+the normalized relative Mahalanobis distance of the frame's penultimate
+features (0 near a typical training frame, 1 at the 99th percentile of
+the held-out training data; ``models/mahalanobis.py``). The fit moves to
+the device once, at the model's build. A fit whose feature size is not
+the model's penultimate width is stale: the service says so on stderr
+and serves without the column, never failing for it.
 
 The forwards run on ``device`` through cuDNN and cuBLAS; ``fav_tpu``
 computes them outside any Pallas kernel, so no hand-written kernel stands
@@ -66,6 +76,7 @@ from fav_tpu_torch.config import ModelParams, model_params_from_metadata
 from fav_tpu_torch.device import resolve_device
 from fav_tpu_torch.models.cnn import ConvAutoencoder, create_autoencoder, create_model, init_params
 from fav_tpu_torch.models.conformal import prediction_sets, set_sizes
+from fav_tpu_torch.models.mahalanobis import load_fit, mahalanobis_scores, normalized_rmd
 from fav_tpu_torch.models.uncertainty import (
     anomaly_from_confidence,
     ensemble_probs,
@@ -129,13 +140,11 @@ class InferenceService:
         self._meta: dict = {}
         self.restore_error: str | None = None
         self._col_self_conf: int | None = None
+        self._col_rmd: int | None = None
+        self.has_feature_distance = False  # resolved at the model's build
         self.dispatches = 0  # batches dispatched, warm-up included
         self.frames_scored = 0  # frames whose scores reached their caller
         self.outstanding = 0  # frames submitted whose batch has not come back
-        fit = self._resolve_ckpt_dir() + MAHA_FIT_SUFFIX
-        if os.path.isfile(fit):
-            raise NotImplementedError(
-                f"{fit}: serving a Mahalanobis feature distance is not ported yet: ROADMAP.md Queue 1 item 8")
 
     # ── model set-up (first use, in the worker's thread) ──
     def _ensure_model(self) -> None:
@@ -175,7 +184,12 @@ class InferenceService:
         model = [m.to(dev).eval() for m in model] if isinstance(model, list) else model.to(dev).eval()
         temperature = self._temperature
         qhat = self._meta.get("conformal_qhat")
+        fit = self._load_maha_fit(model, ckpt) if self.uncertainty == "msp" else None
+        self.has_feature_distance = fit is not None
+        # the packed row's layout, fixed at build: 6 columns, the monitored
+        # self-confidence, then the feature distance
         self._col_self_conf = 6 if self._monitor_dir else None
+        self._col_rmd = (7 if self._monitor_dir else 6) if fit is not None else None
 
         if self.uncertainty == "autoencoder":
             baseline = float(self._meta.get("err_baseline", AE_BASELINE_DEFAULT)) or AE_BASELINE_DEFAULT
@@ -209,11 +223,13 @@ class InferenceService:
             mon_t = float(mon_meta.get("temperature", 1.0))
             self.monitor_source = f"checkpoint:{self._monitor_dir}"
 
-        def summarize(member_probs: torch.Tensor, mon_conf: torch.Tensor | None) -> torch.Tensor:
+        def summarize(member_probs: torch.Tensor, mon_conf: torch.Tensor | None,
+                      rmd: torch.Tensor | None = None) -> torch.Tensor:
             """Every score of a batch in ONE float32 [B, 6] tensor (+1 column
-            with a monitor): one device-to-host copy per batch. With a
-            monitor, column 1 is the min-gated confidence and drives the
-            anomaly; column 6 keeps the predictor's own."""
+            with a monitor, +1 with a fit): one device-to-host copy per
+            batch. With a monitor, column 1 is the min-gated confidence and
+            drives the anomaly; column 6 keeps the predictor's own. The
+            feature distance ``rmd`` comes last."""
             mean_probs = member_probs.mean(dim=0)
             self_conf = mean_probs.amax(dim=-1)
             conf = self_conf if mon_conf is None else torch.minimum(self_conf, mon_conf)
@@ -232,24 +248,30 @@ class InferenceService:
             ]
             if mon_conf is not None:
                 cols.append(self_conf.to(f32))
+            if rmd is not None:
+                cols.append(rmd.to(f32))
             return torch.stack(cols, dim=-1)
 
         mode, mc_samples = self.uncertainty, self.cfg.mc_samples
         generator = torch.Generator(device=dev).manual_seed(MC_DROPOUT_SEED) if mode == "mc_dropout" else None
 
         @torch.no_grad()
-        def probabilities(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        def probabilities(images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
             """The predictor's tempered member probabilities [M, B, C] (one
-            member for msp) and the monitor's confidence [B] (None without
-            a monitor)."""
+            member for msp), the monitor's confidence [B] and the feature
+            distance [B] (each None without a monitor or a fit)."""
             mon_conf = None
             if monitor is not None:
                 mon_conf = torch.softmax(monitor(images) / mon_t, dim=-1).amax(dim=-1)
             if mode == "mc_dropout":
-                return mc_dropout_probs(model, images, generator, mc_samples, temperature), mon_conf
+                return mc_dropout_probs(model, images, generator, mc_samples, temperature), mon_conf, None
             if mode == "ensemble":
-                return ensemble_probs(model, images, temperature), mon_conf
-            return torch.softmax(model(images) / temperature, dim=-1)[None], mon_conf
+                return ensemble_probs(model, images, temperature), mon_conf, None
+            if fit is None:
+                return torch.softmax(model(images) / temperature, dim=-1)[None], mon_conf, None
+            feats, logits = model.features_and_logits(images)
+            rmd = normalized_rmd(mahalanobis_scores(feats, fit)["rmd"], fit)
+            return torch.softmax(logits / temperature, dim=-1)[None], mon_conf, rmd
 
         def forward(images: torch.Tensor) -> torch.Tensor:
             return summarize(*probabilities(images))
@@ -277,6 +299,24 @@ class InferenceService:
                 traceback.print_exc()
                 model = init_params(create_model(cfg), torch.Generator().manual_seed(0))
         return model
+
+    def _load_maha_fit(self, model: torch.nn.Module, ckpt: str):
+        """The Mahalanobis fit beside weights that loaded, on the device, or
+        None: no fit, no loaded weights, or a stale fit (its feature size
+        is not the model's penultimate width), which is said on stderr."""
+        fit_path = ckpt + MAHA_FIT_SUFFIX
+        if not self.source.startswith("checkpoint:") or not os.path.isfile(fit_path):
+            return None
+        fit = load_fit(fit_path)
+        sample = torch.zeros((1, self.cfg.image_size, self.cfg.image_size, self.cfg.channels), device=self.device)
+        with torch.no_grad():
+            feat_dim = model.features_and_logits(sample)[0].shape[-1]
+        fit_dim = fit.class_means.shape[1]
+        if fit_dim != feat_dim:
+            print(f"[fav_tpu_torch] WARNING: {fit_path} feature dim {fit_dim} != model penultimate width "
+                  f"{feat_dim}; ignoring the stale fit (refit with fav_tpu_torch.tools.fit_maha)", file=sys.stderr)
+            return None
+        return fit.to(self.device)
 
     def _resolve_ckpt_dir(self) -> str:
         """The weight stem to serve: the one given, else the mode's default
@@ -327,6 +367,8 @@ class InferenceService:
             info["conformal_qhat"] = self._meta.get("conformal_qhat")
         if self._monitor_dir:
             info["monitor"] = self.monitor_source or f"pending:{self._monitor_dir}"
+        if self.has_feature_distance:
+            info["feature_distance"] = True  # the dashboard's badge: the column is served
         if self.restore_error:
             info["error"] = f"checkpoint restore failed: {self.restore_error}"
         return info
@@ -344,8 +386,8 @@ class InferenceService:
 
     def score_batch(self, frames, members: bool = False) -> tuple[np.ndarray, np.ndarray | None]:
         """Score ``frames`` [n, S, S, 3] (float, in [0, 1]) as one batch,
-        outside the worker and its counts: returns the packed rows [n, 6 or
-        7] that the worker serves for them and the predictor's tempered
+        outside the worker and its counts: returns the packed rows [n, 6 to
+        8] that the worker serves for them and the predictor's tempered
         probabilities [n, C] that the rows derive from (``members``: each
         member's or replica's, [M, n, C]; None for the autoencoder). Builds
         the model on first use; an MC-dropout batch draws its masks from
@@ -355,8 +397,8 @@ class InferenceService:
         n = len(frames)
         if self._probabilities is None:
             return self._forward(self._stack(frames))[:n].cpu().numpy(), None
-        member_probs, mon_conf = self._probabilities(self._stack(frames))
-        packed = self._summarize(member_probs, mon_conf)
+        member_probs, mon_conf, rmd = self._probabilities(self._stack(frames))
+        packed = self._summarize(member_probs, mon_conf, rmd)
         probs = member_probs[:, :n] if members else member_probs.mean(dim=0)[:n]
         return packed[:n].cpu().numpy(), probs.cpu().numpy()
 
@@ -456,7 +498,7 @@ class InferenceService:
 
     def _dispatch(self, frames: list[np.ndarray]) -> torch.Tensor:
         """Enqueue one batch on the device; returns its packed scores
-        [bucket, 6 or 7] without copying them to the host."""
+        [bucket, 6 to 8] without copying them to the host."""
         self.dispatches += 1
         return self._forward(self._stack(frames))
 
@@ -488,4 +530,8 @@ class InferenceService:
         if self._col_self_conf is not None:
             # monitored serving: row[1] was the min-gated confidence
             res["confidence_self"] = round(float(row[self._col_self_conf]), 4)
+        if self._col_rmd is not None:
+            # normalized relative Mahalanobis: 0 near a typical training
+            # frame, 1 at the 99th percentile of the training data
+            res["feature_distance"] = round(float(row[self._col_rmd]), 4)
         return res

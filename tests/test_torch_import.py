@@ -85,6 +85,10 @@ def _port_sources() -> list[Path]:
     return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
+# the repo-root tools/ are JAX scripts: the port has its own under fav_tpu_torch/tools
+ROOT_TOOLS = {"tools"} | {p.stem for p in (REPO / "tools").glob("*.py")}
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_no_source_imports_jax_or_fav_tpu(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -97,6 +101,7 @@ def test_no_source_imports_jax_or_fav_tpu(path):
             continue
         for name in names:
             assert name.split(".")[0] not in BLOCKED_ROOTS, f"{path.name}:{node.lineno} imports {name}"
+            assert name.split(".")[0] not in ROOT_TOOLS, f"{path.name}:{node.lineno} imports the repo-root {name}"
 
 
 def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:
@@ -156,6 +161,11 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         augmix(torch.Generator(), np.zeros((2, 32, 32, 3), np.float32))
     with pytest.raises(RuntimeError):
         pretrain.main(["--steps", "1"])
+    # the fit tool
+    from fav_tpu_torch.tools import fit_maha
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit_maha.main(["--checkpoint", str(PACKAGE / "weights" / "student_nano"), "--fit-images", "10"])
     assert augmix(torch.Generator(), torch.zeros(2, 32, 32, 3)).device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):

@@ -28,8 +28,8 @@
   the reconstruction error within ``AE_ERR_RTOL`` (relative) for the
   autoencoder, and for MC dropout, whose masks are another draw of the
   same law, sampling bounds over the port's 20 replicas.
-* The service's contract: a Mahalanobis fit raises
-  ``NotImplementedError``, a missing monitor fails the service, missing
+* The service's contract: a Mahalanobis fit adds the feature distance
+  (``tests/test_torch_maha_serving.py``), a missing monitor fails the service, missing
   weights serve random weights marked degraded, unloadable weights say so
   (msp) or raise (the other modes), an ensemble of another member count
   raises, and one batch is one copy to the host.
@@ -466,17 +466,28 @@ def test_unknown_mode_and_monitored_autoencoder_refused():
         InferenceService(uncertainty="autoencoder", monitor_dir="x", device="cpu")
 
 
-def test_mahalanobis_fit_raises(tmp_path):
+def test_mahalanobis_fit_raises(tmp_path, inputs):
+    """A Mahalanobis fit beside the weights no longer raises: the service
+    builds, serves the feature distance as the row's last column and says
+    so in ``info()``; a fit file that cannot be read raises at the model's
+    build, as ``fav_tpu``'s ``load_fit`` does
+    (``tests/test_torch_maha_serving.py`` holds the column to ``fav_tpu``)."""
+    from fav_tpu_torch.models.mahalanobis import MahalanobisFit, save_fit
     from fav_tpu_torch.serving.inference import InferenceService
 
     stem = str(tmp_path / "student")
     for ext in (".npz", ".metadata.json"):
         with open(os.path.join(PORT_WEIGHTS, "student_nano" + ext), "rb") as src, open(stem + ext, "wb") as dst:
             dst.write(src.read())
-    InferenceService(checkpoint_dir=stem, device="cpu")  # no fit: fine
     np.savez(stem + ".maha_fit.npz", class_means=np.zeros((10, 64), np.float32))
-    with pytest.raises(NotImplementedError, match="Mahalanobis"):
-        InferenceService(checkpoint_dir=stem, device="cpu")
+    svc = InferenceService(checkpoint_dir=stem, device="cpu")  # builds lazily: no raise here
+    with pytest.raises(KeyError):
+        svc.score_batch(inputs[:1])
+    eye = torch.eye(64)
+    save_fit(stem + ".maha_fit.npz", MahalanobisFit(torch.zeros(10, 64), eye, torch.zeros(64), eye, 0.0, 1.0))
+    svc = InferenceService(checkpoint_dir=stem, device="cpu")
+    rows, _ = svc.score_batch(inputs[:3])
+    assert rows.shape == (3, 7) and svc.info()["feature_distance"] is True
 
 
 def _score(svc, frames):

@@ -537,16 +537,15 @@ def test_nested_fields_match_the_ports_producers():
 
 def test_ml_inference_fields_match_the_ports_service():
     """Every ``ml_inference`` field the JS reads is produced by the port's
-    service, except ``feature_distance``: the server's Mahalanobis column
-    is not wired (ROADMAP.md Queue 1 item 8), and the JS reads it only behind an
-    ``!== undefined`` guard."""
+    service, ``feature_distance`` included (served with a Mahalanobis
+    fit), which the JS reads only behind an ``!== undefined`` guard."""
     with open(PORT_INFERENCE, encoding="utf-8") as f:
         src = f.read()
     produced = set(re.findall(r'"(\w+)":\s*(?:int|round|float)\(', src))
     produced |= set(re.findall(r'res\["(\w+)"\]\s*=\s*(?:int|round|float)\(', src))
     app_js = _js_sources()["app.js"]
     read = set(re.findall(r"ml_inference\.(\w+)", _strip_strings_and_comments(app_js)))
-    assert read - produced == {"feature_distance"}
+    assert "feature_distance" in read and read - produced == set()
     assert "msg.ml_inference.feature_distance !== undefined" in app_js
 
 
