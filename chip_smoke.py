@@ -10,7 +10,9 @@ the other model families and the multi-forward scorers in the server and
 the grid, train every remaining objective (SAM, DeepAugment, the AugMix
 options, ensembles, KD, MC distillation, the autoencoder) and the pretrain
 CLI, serve the Mahalanobis feature distance and run the fit and replay
-tools, quantise to int8, and report.
+tools, quantise to int8, run the parallel paths on a world of one rank
+(offset draws, the sharded grid, ``pretrain --shard``, the tensor-parallel
+ViT), and report.
 
     python3 chip_smoke.py             # what the checks run
     python3 chip_smoke.py --profile   # adds torch.profiler tables of one megastep, one analyzer batch,
@@ -228,7 +230,24 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                logits under its scales within 0.125, argmax on clear
                margins); the bf16, int8 ``im2col`` and int8 ``conv``
                forwards of ``student_nano`` at batch 6144 and
-               ``classifier`` at 2048, timed; no hand kernel launched.
+               ``classifier`` at 2048, timed; no hand kernel launched;
+16. parallel -- a world of one rank (``parallel/dist.py:init_world`` on the
+               card, NCCL over a ``file://`` store), its NCCL version and a
+               ``(1, 1, 1)`` mesh: K1-K3, the Philox helper (the elastic,
+               snow, glass and octave draw shapes) and K6's fields on rows
+               [1024, 2048) of a (2048, 32, 32, 3) batch at offset 1024,
+               bit-equal to those rows of the whole batch's call and held
+               to their plain versions at offset, each timed with and
+               without the offset; ``sharded_sweep`` (the NCCL gather of
+               each chunk's rows) on ``classifier`` over the 75 cells of
+               2048 images, its per-sample rows and metrics equal to
+               ``fused_sweep``'s bit for bit, both timed; ``pretrain
+               --ensemble 5 --shard`` (widths 64/128/256, batch 256,
+               AugMix, 3 steps) against ``pretrain --ensemble 5``; the
+               tensor-parallel ``vit`` at batch 2048 against its plain
+               bf16 forward; the world left before the report. Its
+               launches (the sharded grid's and the training run's) join
+               each kernel's count under the ``parallel`` path.
 
 The line before the last is one JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -237,6 +256,7 @@ after 480 s with every thread's stack.
 """
 
 import faulthandler
+import itertools
 import json
 import subprocess
 import sys
@@ -1363,6 +1383,8 @@ def trainers_recipes(dev, ds) -> dict:
                       lambda st, v, g: trn.augmix_step_core(st, x, y, *v, lam, g), 3 * TRAIN_BATCH)
 
     def ensemble_recipe(on: bool):
+        seeds = itertools.count(SEED)  # an ensemble step takes its seed: member m draws from fold_in(seed, m)
+
         def prep(g):
             return [trn.ensemble_member_views(g, x, on, "ce") for _ in range(ENSEMBLE_MEMBERS)]
 
@@ -1370,7 +1392,7 @@ def trainers_recipes(dev, ds) -> dict:
             return [trn.ensemble_member_step_core(st, x, y, v, "ce", lam, g) for st, v in zip(sts, views)]
 
         return Recipe(lambda: [fresh(seed=SEED + i) for i in range(ENSEMBLE_MEMBERS)],
-                      lambda sts, g: trn.ensemble_train_step(sts, x, y, g, augmix=on, augmix_mode="ce"),
+                      lambda sts, g: trn.ensemble_train_step(sts, x, y, next(seeds), augmix=on, augmix_mode="ce"),
                       prep, core, ENSEMBLE_MEMBERS * (2 if on else 1) * TRAIN_BATCH)
 
     def ae_state():
@@ -3074,6 +3096,237 @@ def quant_phase(dev, ds) -> dict:
     return report
 
 
+# ── phase 16: the parallel paths on a world of one ─────────────────────────
+
+PARALLEL_BATCH = GRID_IMAGES  # the offset shape (2048, 32, 32, 3), the grid's images
+PARALLEL_SEVERITY = 3
+PARALLEL_ROWS = ("conf", "correct", "fail", "entropy", "brier", "anomaly", "energy", "l1_status", "l1_anomaly")
+PARALLEL_MEMBERS = 5  # the ensemble checkpoint's members and widths
+PARALLEL_WIDTHS = "64,128,256"
+PARALLEL_STEPS = 3
+PARALLEL_LR = 1e-3  # pretrain's default
+# pretrain --shard against pretrain on the card (tests/test_torch_parallel_train.py's
+# bar): cuDNN's backward sums in no fixed order, and AdamW's first steps move a
+# weight by about lr in the sign of its gradient, so a weight whose gradient
+# lies within the noise moves either way. The member losses of every step
+# within 1e-3 relative; each weight leaf's change from its initialisation
+# within 0.25 of the plain run's change, in norm; the conv biases before
+# GroupNorm, whose gradient is zero in exact arithmetic and so all noise,
+# within 2 lr a step.
+PARALLEL_PARAM_ATOL = 2 * PARALLEL_LR * PARALLEL_STEPS
+PARALLEL_LOSS_RTOL = 1e-3
+PARALLEL_DELTA_GAP = 0.25
+# the tensor-parallel ViT against the plain forward, both bf16 on the card:
+# each row-parallel product is summed in float32 and rounded once, where the
+# plain product rounds once after cuBLAS's own float32 sum (the bf16 class
+# of tests/test_torch_vit.py), argmax equal wherever the plain top two lie
+# more than twice that apart
+PARALLEL_TP_ATOL = 0.0625
+
+
+def parallel_offsets(dev) -> dict:
+    """K1-K3, the Philox helper's draws and K6's fields on rows [B/2, B) at
+    offset B/2, held to the same rows of the whole batch's call and to the
+    plain versions; each timed with and without the offset."""
+    import torch
+
+    from fav_tpu_torch.ops import corruptions as plain
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 400)
+    x = torch.rand((PARALLEL_BATCH, 32, 32, 3), generator=gen, device=dev)
+    half = PARALLEL_BATCH // 2
+    xs = x[half:].contiguous()
+    b, h, w, c = xs.shape
+    sev = PARALLEL_SEVERITY
+    out = {}
+    for i, (name, kid, wrapper, plain_fn) in enumerate((
+            ("gaussian_noise", "K1", kern.gaussian_noise, plain.gaussian_noise_plain),
+            ("shot_noise", "K2", kern.shot_noise, plain.shot_noise_plain),
+            ("impulse_noise", "K3", kern.impulse_noise, plain.impulse_noise_plain))):
+        seed = SEED + 401 + i
+        whole = wrapper(seed, x, sev)
+        part = wrapper(seed, xs, sev, row=half)
+        check(torch.equal(part, whole[half:]), f"parallel: {kid} at offset {half} differs from the whole batch's rows")
+        want = plain_fn(seed, xs, sev, row=half)
+        diff = (part - want).abs()
+        err = float(diff.max())
+        if name == "shot_noise":
+            frac = float((diff > 0).sum()) / diff.numel()
+            check(frac <= K2_MAX_TIE_FRACTION and err <= 1.0 / plain.sev_param(plain.SHOT_C, sev) + 1e-6,
+                  f"parallel: K2 at offset: {frac:.2e} of elements differ from the plain version, max {err}")
+        else:
+            tol = K1_TOL if name == "gaussian_noise" else 0.0
+            check(err <= tol, f"parallel: {kid} at offset: max |kernel-plain| {err} > {tol}")
+        ms_off = time_ms(lambda: wrapper(seed, xs, sev, row=half), reps=20)
+        ms = time_ms(lambda: wrapper(seed, xs, sev), reps=20)
+        out[name] = {"kid": kid, "max_abs_err": err, "ms_offset": ms_off, "ms": ms}
+        phase("parallel", f"{kid} {name} on rows [{half}, {PARALLEL_BATCH}) at offset {half}: equal to the whole "
+                          f"batch's rows; max|kernel-plain| {err:.3e}; {ms_off:.4f} ms with the offset, {ms:.4f} ms "
+                          f"without, at ({b}, {h}, {w}, {c})")
+    # the helper at every draw shape the grid gives it, and K6 on its fields
+    seed = SEED + 404
+    shapes = {"elastic, snow": (h, w, 1), "glass": (h, w, 2),
+              **{f"octave {o}": s[1:] for o, s in enumerate(plain.octave_shapes(b, h, w))}}
+    for label, tail in shapes.items():
+        for draw in (0, 1):
+            whole = kern.uniform(seed, (PARALLEL_BATCH, *tail), draw, dev)
+            part = kern.uniform(seed, (b, *tail), draw, dev, row=half)
+            check(torch.equal(part, whole[half:]), f"parallel: helper {label} draw {draw} at offset differs")
+            check(torch.equal(part, plain.uniform_field(seed, (b, *tail), draw, dev, row=half)),
+                  f"parallel: helper {label} draw {draw} at offset differs from uniform_field")
+    n = b * h * w * 2
+    ms_off = time_ms(lambda: kern.uniform(seed, (b, h, w, 2), 0, dev, row=half), reps=20)
+    ms = time_ms(lambda: kern.uniform(seed, (b, h, w, 2), 0, dev), reps=20)
+    out["philox_uniform"] = {"kid": "helper", "max_abs_err": 0.0, "ms_offset": ms_off, "ms": ms}
+    fy, fx = plain.elastic_fields(seed, xs, sev, uniform=kern.uniform, row=half)
+    wy, wx = plain.elastic_fields(seed, x, sev, uniform=kern.uniform)
+    check(torch.equal(fy, wy[half:]) and torch.equal(fx, wx[half:]), "parallel: K6's fields at offset differ")
+    warped = kern.elastic_warp(xs, fy, fx, sev)
+    check(torch.equal(warped, kern.elastic_transform(seed, x, sev)[half:]), "parallel: K6 at offset differs")
+    check(torch.equal(warped, plain.elastic_from_fields(xs, fy, fx, sev)), "parallel: K6 at offset vs plain")
+    phase("parallel", f"helper draws 0 and 1 at offset {half} (elastic and snow, glass, fog and frost octaves "
+                      f"{', '.join(str(s) for s in shapes.values())}): bit-equal to the whole batch's rows and to "
+                      f"uniform_field; {ms_off:.4f} ms with the offset, {ms:.4f} ms without ({n} draws); K6's fields "
+                      f"and warp at offset equal to the whole batch's rows and to its plain version")
+    return out
+
+
+def parallel_phase(dev, ds, smi: str) -> dict:
+    """The parallel paths on a world of one; see the module docstring, phase 16."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fav_tpu_torch.models import pretrain
+    from fav_tpu_torch.models.vit import tensor_parallel_vit
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+    from fav_tpu_torch.parallel.dist import destroy_world, init_world
+    from fav_tpu_torch.parallel.mesh import build_mesh
+    from fav_tpu_torch.parallel.sweep import GRID_SEED, fused_sweep, sharded_sweep
+    from fav_tpu_torch.utils.checkpoint import load_flax_npz, load_student, load_weights
+
+    store = tempfile.mkdtemp(prefix="fav_world_")
+    world = init_world(dev, init_method=f"file://{store}/store", timeout=120)
+    mesh = build_mesh((1, 1, 1))
+    phase("parallel", f"world of {world.size} ({world.backend}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}) "
+                      f"on {world.device}; mesh {mesh.shape}; {smi}")
+    report: dict = {"offsets": parallel_offsets(dev), "mesh": mesh.shape, "world": world.size}
+    counts = {k: 0 for k in kern.launch_counts()}
+
+    # the sharded 15x5 grid against fused_sweep, on the classifier
+    model, meta = load_student("classifier", device=dev)
+    temperature = float(meta["temperature"])
+    images = torch.from_numpy(ds.test_images[:GRID_IMAGES]).to(dev)
+    labels = torch.from_numpy(ds.test_labels[:GRID_IMAGES]).to(dev)
+    kw = dict(temperature=temperature, return_rows=PARALLEL_ROWS)
+    walls = {}
+    for _ in range(2):  # the first run of each warms its shapes
+        torch.cuda.synchronize()
+        kern.reset_launch_counts()
+        t = time.perf_counter()
+        sharded = sharded_sweep(mesh, model, images, labels, GRID_SEED, fused=True, params=list(model.parameters()),
+                                **kw)
+        torch.cuda.synchronize()
+        walls["sharded"] = time.perf_counter() - t
+        grid_counts = kern.launch_counts()
+        t = time.perf_counter()
+        whole = fused_sweep(model, images, labels, GRID_SEED, **kw)
+        torch.cuda.synchronize()
+        walls["fused"] = time.perf_counter() - t
+    check(grid_counts == grid_launches(), f"parallel: sharded grid launches {grid_counts}, expected {grid_launches()}")
+    counts = {k: counts[k] + grid_counts[k] for k in counts}
+    check(sharded[1] == whole[1] and len(whole[1]) == 75, "parallel: the grids' cells differ")
+    for r in PARALLEL_ROWS:
+        check(np.array_equal(sharded[2][r], whole[2][r]), f"parallel: sharded row {r} differs from fused_sweep's")
+    check(sharded[0] == whole[0], "parallel: the sharded grid's metrics differ from fused_sweep's")
+    report["grid"] = {"sharded_s": walls["sharded"], "fused_s": walls["fused"]}
+    phase("parallel", f"sharded_sweep over {mesh.shape}, classifier, 75 cells x {GRID_IMAGES} images: per-sample rows "
+                      f"({', '.join(PARALLEL_ROWS)}) and metrics equal to fused_sweep's bit for bit; "
+                      f"{walls['sharded']:.3f} s wall sharded, {walls['fused']:.3f} s fused (warm)")
+
+    # pretrain --ensemble 5 --shard against pretrain --ensemble 5
+    out_dir = REPO_DIR / "build" / "torch_checkpoints" / "parallel"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    base = ["--ensemble", str(PARALLEL_MEMBERS), "--widths", PARALLEL_WIDTHS, "--batch", str(TRAIN_BATCH),
+            "--augmix", "--steps", str(PARALLEL_STEPS), "--log-every", "1", "--lr", str(PARALLEL_LR),
+            "--device", dev.type]
+    logs, metas, pre_walls = {}, {}, {}
+    for label, extra in (("shard", ["--shard"]), ("plain", []), ("init", ["--steps", "0"])):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        kern.reset_launch_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            metas[label] = pretrain.main([*base, *extra, "--out", str(out_dir / label)], dataset=ds)
+        torch.cuda.synchronize()
+        pre_walls[label] = time.perf_counter() - t
+        if label == "shard":
+            shard_counts = kern.launch_counts()
+        logs[label] = [ln for ln in buf.getvalue().splitlines() if ln.startswith("step ")]
+    views = PARALLEL_MEMBERS * 2 * PARALLEL_STEPS
+    want = {k: 0 for k in counts} | {"shear_rows": 2 * views, "shear_cols": views}
+    check(shard_counts == want, f"parallel: pretrain --shard launches {shard_counts}, expected {want}")
+    counts = {k: counts[k] + shard_counts[k] for k in counts}
+    check(sorted(metas["shard"]) == sorted(metas["plain"]), "parallel: pretrain --shard metadata keys differ")
+    loss = {k: np.array([[float(v) for v in ln.split("[")[1].rstrip("]").split(",")] for ln in lg])
+            for k, lg in logs.items()}
+    check(loss["shard"].shape == (PARALLEL_STEPS, PARALLEL_MEMBERS), f"parallel: member losses {loss['shard']}")
+    check(np.allclose(loss["shard"], loss["plain"], rtol=PARALLEL_LOSS_RTOL, atol=0), f"parallel: losses {loss}")
+    a, b2, w0 = (load_flax_npz(out_dir / f"{label}.npz") for label in ("shard", "plain", "init"))
+    perr = max(float(np.abs(a[k] - b2[k]).max()) for k in a)
+    noise = {f"Conv_{i}/bias" for i in range(3 * len(PARALLEL_WIDTHS.split(","))) if i % 3 != 2}
+
+    def change_gap(got) -> float:
+        return max(float(np.linalg.norm(got[k] - b2[k]) / np.linalg.norm(b2[k] - w0[k])) for k in b2 if k not in noise)
+
+    gap = change_gap(a)
+    check(gap <= PARALLEL_DELTA_GAP, f"parallel: pretrain --shard's weights moved {gap} off pretrain's change")
+    nerr = max(float(np.abs(a[k] - b2[k]).max()) for k in noise)
+    check(nerr <= PARALLEL_PARAM_ATOL, f"parallel: pretrain --shard conv biases {nerr} from pretrain's")
+    check(change_gap(w0) > PARALLEL_DELTA_GAP, "parallel: the untrained control passes the weight bound")
+    members, _ = load_weights("shard", device=dev, directory=out_dir)
+    check(isinstance(members, list) and len(members) == PARALLEL_MEMBERS, "parallel: weights read back")
+    report["pretrain"] = {"shard_s": pre_walls["shard"], "plain_s": pre_walls["plain"], "max_param_diff": perr,
+                          "max_change_gap": gap}
+    phase("parallel", f"pretrain --ensemble {PARALLEL_MEMBERS} --shard --widths {PARALLEL_WIDTHS} --batch "
+                      f"{TRAIN_BATCH} --augmix --steps {PARALLEL_STEPS} (one rank: unsharded, as fav_tpu on one "
+                      f"device) against pretrain without --shard: member losses within {PARALLEL_LOSS_RTOL} "
+                      f"relative, each leaf's change from the init within {gap:.3e} of pretrain's (tol "
+                      f"{PARALLEL_DELTA_GAP}; the untrained init fails it), weights within {perr:.3e}, conv "
+                      f"biases before GroupNorm within {nerr:.3e} (tol {PARALLEL_PARAM_ATOL}), read back as "
+                      f"{len(members)} members; "
+                      f"{pre_walls['shard']:.2f} s and {pre_walls['plain']:.2f} s wall")
+
+    # the tensor-parallel ViT on a model axis of one
+    vit, _ = load_weights("vit", device=dev)
+    local = tensor_parallel_vit(vit, mesh)
+    with torch.no_grad():
+        want_logits = vit(images)
+        got = local(images)
+        plain_ms = time_ms(lambda: vit(images), reps=5)
+        tp_ms = time_ms(lambda: local(images), reps=5)
+    want_np, got_np = want_logits.float().cpu().numpy(), got.float().cpu().numpy()
+    err = float(np.abs(got_np - want_np).max())
+    top2 = np.sort(want_np, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * PARALLEL_TP_ATOL
+    check(np.isfinite(got_np).all() and err <= PARALLEL_TP_ATOL, f"parallel: TP ViT max diff {err}")
+    check(bool((got_np.argmax(-1) == want_np.argmax(-1))[clear].all()), "parallel: TP ViT argmax differs")
+    report["tp_vit"] = {"max_abs_err": err, "ms": tp_ms, "plain_ms": plain_ms}
+    phase("parallel", f"tensor_parallel_vit (vit: dim 128, depth 4, 4 heads) over {mesh.shape} at batch "
+                      f"{GRID_IMAGES}: max|tp-plain| {err:.4f} (tol {PARALLEL_TP_ATOL}), argmax equal on the "
+                      f"{int(clear.sum())} rows with a clear margin; {tp_ms:.3f} ms against {plain_ms:.3f} ms "
+                      f"(8 all-reduces of a world of one)")
+    destroy_world()
+    shutil.rmtree(store, ignore_errors=True)
+    report["counts"] = counts
+    return report
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -3425,6 +3678,9 @@ def main(argv: list[str]) -> int:
     # ── 15. W8A8 quantisation ──────────────────────────────────────────────
     quant = quant_phase(dev, ds)
 
+    # ── 16. the parallel paths on a world of one ──────────────────────────
+    par = parallel_phase(dev, ds, smi)
+
     # ── report ─────────────────────────────────────────────────────────────
     pallas = "fav_tpu/ops/corruptions_pallas.py"
     csrc = "fav_tpu_torch/ops/csrc"
@@ -3511,10 +3767,18 @@ def main(argv: list[str]) -> int:
                    "K9a shear_rows_bf16": "shear_rows_bf16", "K9b shear_cols_bf16": "shear_cols_bf16"}
     for e in entries:
         e["launches_by_path"] = {path: c[kernel_keys[e["name"]]] for path, c in paths.items()}
+    paths["parallel"] = par["counts"]
+    for e in entries:
+        key = kernel_keys[e["name"]]
+        e["launches"] += par["counts"][key]
+        e["launches_by_path"]["parallel"] = par["counts"][key]
+        if key in par["offsets"]:
+            e["ms_offset"] = par["offsets"][key]["ms_offset"]
     r = report["philox_uniform"]
     helpers = [{"name": "philox_uniform", "route": "cuda", "source": f"{csrc}/corruptions.cu",
-                "replaces": None, "launches": counts["philox_uniform"] + grid_counts["philox_uniform"],
-                **{k: r[k] for k in keys},
+                "replaces": None,
+                "launches": counts["philox_uniform"] + grid_counts["philox_uniform"] + par["counts"]["philox_uniform"],
+                **{k: r[k] for k in keys}, "ms_offset": par["offsets"]["philox_uniform"]["ms_offset"],
                 "library_ms": r["library_ms"], "library_note": "torch.rand(n), another stream",
                 "launches_by_path": {path: c["philox_uniform"] for path, c in paths.items()}}]
     print(json.dumps({"kernels": entries, "helpers": helpers, "megastep_ms": step_ms, "img_per_s": img_s,
@@ -3533,6 +3797,7 @@ def main(argv: list[str]) -> int:
                                                  for label, r in fam_serve[m].items()}
                                              for m in FAMILY_SERVE_MODES}},
                       "maha": {k: v for k, v in maha.items() if not k.endswith("counts")}, "quant": quant,
+                      "parallel": {k: v for k, v in par.items() if k != "counts"},
                       "packed_ab": {"median_ms": ab["median_ms"],
                                     "megastep": {arm: {k: ab["ab_packed"][arm][k]
                                                        for k in ("ms_per_megastep", "img_per_sec")}

@@ -2,16 +2,15 @@
 nothing of the JAX package: the vision-status and policy codes and their
 names (:26-52), ``TrustParams`` (:55-92), ``AnalyzerParams`` (:94-115),
 ``AnomalySimParams``, ``VideoParams``, ``ModelParams``,
-``model_params_from_metadata``, ``ServerParams``, ``FrameworkConfig``,
-``PRESETS`` and ``config_from_env`` (:300-343).
+``model_params_from_metadata``, ``MeshParams`` (:193-202), ``ServerParams``,
+``FrameworkConfig``, ``PRESETS`` and ``config_from_env`` (:300-343).
 ``tests/test_torch_models.py``, ``tests/test_torch_signal.py`` and
 ``tests/test_torch_host.py`` pin every default equal to ``fav_tpu``'s.
 
-Two differences, both about where things live: ``FrameworkConfig`` has no
-``mesh`` section (the device mesh is ROADMAP.md Queue 1 item 10), and a
-checkpoint is a path stem under ``fav_tpu_torch/weights/`` (``<stem>.npz``
-beside ``<stem>.metadata.json``), so the ``gated`` preset names the port's
-copies of ``student_std`` and ``student_nano``."""
+One difference, about where things live: a checkpoint is a path stem under
+``fav_tpu_torch/weights/`` (``<stem>.npz`` beside ``<stem>.metadata.json``),
+so the ``gated`` preset names the port's copies of ``student_std`` and
+``student_nano``."""
 
 from __future__ import annotations
 
@@ -43,6 +42,7 @@ __all__ = [
     "VideoParams",
     "ModelParams",
     "model_params_from_metadata",
+    "MeshParams",
     "ServerParams",
     "FrameworkConfig",
     "PRESETS",
@@ -210,6 +210,19 @@ def model_params_from_metadata(base: ModelParams, meta: dict) -> ModelParams:
 
 
 @dataclass(frozen=True)
+class MeshParams:
+    """The device mesh's axis names and default shape (``parallel/mesh.py``):
+    ``data`` shards a batch, ``ensemble`` the members of a deep ensemble,
+    ``model`` the heads and MLP width of a tensor-parallel ViT; one rank a
+    process."""
+
+    data_axis: str = "data"
+    ensemble_axis: str = "ensemble"
+    model_axis: str = "model"
+    shape: tuple = (1, 1, 1)
+
+
+@dataclass(frozen=True)
 class ServerParams:
     """The server's settings; every field and default is ``fav_tpu``'s."""
 
@@ -245,6 +258,7 @@ class FrameworkConfig:
     anomaly_sim: AnomalySimParams = field(default_factory=AnomalySimParams)
     video: VideoParams = field(default_factory=VideoParams)
     model: ModelParams = field(default_factory=ModelParams)
+    mesh: MeshParams = field(default_factory=MeshParams)
     server: ServerParams = field(default_factory=ServerParams)
 
     def replace(self, **sections: Any) -> "FrameworkConfig":

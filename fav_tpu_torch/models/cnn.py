@@ -32,7 +32,9 @@ matched here:
   ``uniform < keep_prob`` is drawn from the generator passed in, never
   from torch's global one. Eval mode, the default, does not draw. A test
   may hand in ``masks``, an iterator of the keep masks to use in order
-  (flax's own, replayed); ResNetSmall drops out once per stage;
+  (flax's own, replayed), and a data shard a callable ``masks(shape)``
+  that returns the uniforms of its rows of the whole batch's draw
+  (``models/train.py:row_masks``); ResNetSmall drops out once per stage;
 * :func:`init_params` draws flax's initialisation law: ``lecun_normal``
   for Conv, ConvTranspose, Dense and DenseGeneral kernels, zero biases,
   GroupNorm and LayerNorm scale 1 and bias 0, the ViT's ``cls`` 0 and
@@ -161,11 +163,14 @@ def dropout(h: torch.Tensor, rate: float, train: bool, generator: torch.Generato
     ``keep_prob`` rounded to that dtype as flax's weak-typed scalar is, the
     keep mask ``uniform < keep_prob`` drawn from ``generator`` (never from
     torch's global one), or the next of ``masks`` where a test replays
-    flax's own. The identity outside train mode or at rate 0."""
+    flax's own, or ``masks(h.shape) < keep_prob`` where ``masks`` is a
+    callable giving uniforms. The identity outside train mode or at rate 0."""
     if not train or rate == 0.0:
         return h
     keep_prob = 1.0 - rate
-    if masks is not None:
+    if callable(masks):
+        mask = masks(h.shape) < keep_prob
+    elif masks is not None:
         mask = next(masks).to(device=h.device, dtype=torch.bool)
     elif generator is None:
         raise ValueError("train-mode dropout draws its masks from an explicit generator; pass generator=")

@@ -27,6 +27,19 @@ card), view i drawn from its own fixed seed, the counterpart of
 ``fold_in(PRNGKey(11), i)``, so the grid stays deterministic.
 ``--arch`` picks the family of a checkpoint without metadata (a
 checkpoint's metadata wins).
+
+In a world of more than one rank (``torchrun --nproc-per-node N -m
+fav_tpu_torch.models.evaluate``, or a world the caller joined:
+``parallel/dist.py``) whose size divides the image count, the grid shards
+its batch over a ``(N, 1, 1)`` mesh (``parallel/sweep.py:sharded_sweep``),
+as the JAX CLI does with more than one device; each rank runs on its own
+card (``cuda:LOCAL_RANK``), and only rank 0 prints and writes the JSON.
+Its draws are the one-rank grid's, so its per-sample rows are too, bit
+for bit on the CPU and up to the last bits on cards (cuDNN and cuBLAS
+pick their algorithms by the batch's shape). The MC-dropout masks and the
+TTA views of a shard are its rows of the whole batch's
+(``models/train.py:row_masks``, ``ops/augment.py:shard_draws``), so
+those scorers give one rank's grid too.
 """
 
 from __future__ import annotations
@@ -93,17 +106,25 @@ def _load_monitor(monitor: str, parser, device):
     return model, float(meta.get("temperature", 1.0))
 
 
-def _evaluate_checkpoint(ckpt, args, ds, images, labels, monitor, parser, device) -> dict:
-    """One checkpoint through the grid."""
+def _evaluate_checkpoint(ckpt, args, ds, images, labels, monitor, parser, device, world=None) -> dict:
+    """One checkpoint through the grid; sharded over ``world``'s ranks where
+    it has more than one and their number divides the images."""
     import torch
 
     from fav_tpu_torch.models.cnn import create_model, init_params
-    from fav_tpu_torch.models.train import train_classifier
+    from fav_tpu_torch.models.train import row_masks, train_classifier
     from fav_tpu_torch.models.uncertainty import init_ensemble, mc_dropout_logits
     from fav_tpu_torch.ops.corruptions import CORRUPTION_NAMES
-    from fav_tpu_torch.parallel.sweep import GRID_SEED, corruption_sweep, fused_sweep
+    from fav_tpu_torch.parallel.sweep import GRID_SEED, corruption_sweep, fused_sweep, sharded_sweep
     from fav_tpu_torch.utils.checkpoint import flax_to_torch, load_flax_npz, load_weights
 
+    n = images.shape[0]
+    mesh = shard = None
+    if world is not None and world.size > 1 and n % world.size == 0:
+        from fav_tpu_torch.parallel.mesh import build_mesh, data_sharding
+
+        mesh = build_mesh((world.size, 1, 1))
+        shard = data_sharding(mesh, n)
     mp = _model_params_for(ckpt, args, parser)
     temperature = 1.0
     found = _resolve(ckpt)
@@ -121,7 +142,7 @@ def _evaluate_checkpoint(ckpt, args, ds, images, labels, monitor, parser, device
         for m in members:
             m.eval()
 
-        def member_forward(x):
+        def member_forward(x, rows=None):
             return torch.stack([m(x) for m in members])
     else:
         model = create_model(mp).to(device)
@@ -136,27 +157,38 @@ def _evaluate_checkpoint(ckpt, args, ds, images, labels, monitor, parser, device
             source = "random_init"
         model.eval()
         if args.mc_dropout:
-            def member_forward(x):
-                # the same masks in every cell: each call replays one seed
+            def member_forward(x, rows=None):
+                # the same masks in every cell: each call replays one seed;
+                # a shard (``rows`` of the batch) takes its rows of them
                 g = torch.Generator(device=x.device).manual_seed(MC_DROPOUT_SEED)
-                return mc_dropout_logits(model, x, g, args.mc_dropout, max_rows=MC_FOLD_ROWS)
+                if rows is None:
+                    return mc_dropout_logits(model, x, g, args.mc_dropout, max_rows=MC_FOLD_ROWS)
+                return mc_dropout_logits(model, x, g, args.mc_dropout, masks=row_masks(g, n, rows),
+                                         max_rows=MC_FOLD_ROWS, batch=n)
 
+    # every forward takes ``rows``: None for a whole batch, or the shard's
+    # rows of the grid's batch, whose draws it takes
     if member_forward is not None:
-        def forward(x):
-            return member_forward(x).mean(dim=0)
+        def forward(x, rows=None):
+            return member_forward(x, rows).mean(dim=0)
     else:
-        forward = model
+        def forward(x, rows=None):
+            return model(x)
     if args.tta > 1:
         # the clean view and K - 1 AugMix views, each view's draws fixed
-        from fav_tpu_torch.ops.augment import augmix
+        from fav_tpu_torch.ops.augment import augmix, augmix_apply, augmix_draws, shard_draws
         from fav_tpu_torch.parallel.sweep import _fold_in
 
         def tta_wrap(base):
-            def wrapped(x):
-                logits = base(x)
+            def wrapped(x, rows=None):
+                logits = base(x, rows)
                 for i in range(args.tta - 1):
                     g = torch.Generator(device=x.device).manual_seed(_fold_in(TTA_SEED, i))
-                    logits = logits + base(augmix(g, x))
+                    if rows is None:
+                        view = augmix(g, x)
+                    else:
+                        view = augmix_apply(x, shard_draws(augmix_draws(g, n, image_size=x.shape[1:3]), rows))
+                    logits = logits + base(view, rows)
                 return logits / args.tta
 
             return wrapped
@@ -175,11 +207,10 @@ def _evaluate_checkpoint(ckpt, args, ds, images, labels, monitor, parser, device
         fit_feats = collect_features(model, ds.train_images[:n_fit])
         fit = fit_feature_gaussians(fit_feats, ds.train_labels[:n_fit], mp.num_classes).to(device)
 
-        def sweep_forward(x):
+        def sweep_forward(x, rows=None):
             feats, logits = model.features_and_logits(x)
             return logits, mahalanobis_scores(feats, fit)
 
-    n = images.shape[0]
     names = tuple(c for c in args.corruptions.split(",") if c) or CORRUPTION_NAMES
     # multi-forward scorers and a monitor bound the chunk by the forwards a
     # cell runs, as the JAX CLI does
@@ -191,7 +222,16 @@ def _evaluate_checkpoint(ckpt, args, ds, images, labels, monitor, parser, device
         want_rows = ("l1_status", "l1_anomaly", "conf", "correct")
         if monitor is not None:
             want_rows += ("mon_conf",)
-    if args.per_cell:
+    devices = 1
+    if mesh is not None:
+        devices = world.size
+        held = (members if args.ensemble else [model]) + ([monitor[0]] if monitor else [])
+        grid = sharded_sweep(mesh, lambda x: sweep_forward(x, shard), images, labels, GRID_SEED,
+                             corruptions=names, temperature=temperature, fused=not args.per_cell,
+                             cells_per_call=cells_per_call, return_probs=want_probs, monitor=monitor,
+                             return_rows=want_rows, params=[p for m in held for p in m.parameters()],
+                             timings=args.timings)
+    elif args.per_cell:
         grid = corruption_sweep(sweep_forward, images, labels, GRID_SEED, corruptions=names,
                                 temperature=temperature)
     else:
@@ -312,7 +352,7 @@ def _evaluate_checkpoint(ckpt, args, ds, images, labels, monitor, parser, device
         "mean_failure_auroc_composed": overall_mean("auroc_composed"),
         "confident_wrong_cells": confident_wrong,
         "unflagged_confident_wrong_cells": unflagged,
-        "devices": 1,
+        "devices": devices,
         "data_source": ds.source,
         **({"tta_views": args.tta} if args.tta > 1 else {}),
         **({"monitor": args.monitor,
@@ -394,7 +434,15 @@ def main(argv=None, timings: dict | None = None, dataset=None) -> dict:
     from fav_tpu_torch.data.cifar import load_cifar10
     from fav_tpu_torch.device import resolve_device
 
+    from fav_tpu_torch.parallel.dist import current_world, init_world
+
     device = resolve_device(os.environ.get(DEVICE_ENV) or None)
+    world = current_world()
+    if world is None and int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
+        world = init_world(device)
+    if world is not None:
+        device = world.device
+    talk = world is None or world.rank == 0
     # float32 matmuls (the band-matrix families, the Mahalanobis products)
     # in full float32, as fav_tpu's Precision.HIGHEST: never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -410,19 +458,20 @@ def main(argv=None, timings: dict | None = None, dataset=None) -> dict:
 
     results: dict[str, dict] = {}
     for ckpt in ckpts:
-        result = _evaluate_checkpoint(ckpt, args, ds, images, labels, monitor, parser, device)
+        result = _evaluate_checkpoint(ckpt, args, ds, images, labels, monitor, parser, device, world)
         results[ckpt] = result
-        print(json.dumps(result["summary"], indent=2))
+        if talk:
+            print(json.dumps(result["summary"], indent=2))
 
     if len(ckpts) == 1:
         result = results[ckpts[0]]
-        if args.out:
+        if args.out and talk:
             with open(args.out, "w") as f:
                 json.dump(result, f, indent=2)
             print(f"full grid -> {args.out}")
         return result
     combined = {"checkpoints": results}
-    if args.out:
+    if args.out and talk:
         with open(args.out, "w") as f:
             json.dump(combined, f, indent=2)
         print(f"full grids -> {args.out}")

@@ -5,10 +5,9 @@
     python -m fav_tpu_torch.models.pretrain --autoencoder --steps 2000
     python -m fav_tpu_torch.models.pretrain --distill-mc 20 --steps 1500
     python -m fav_tpu_torch.models.pretrain --distill-ensemble --augmix --widths 32,64,128 --steps 3000
+    torchrun --nproc-per-node 4 -m fav_tpu_torch.models.pretrain --ensemble 4 --shard
 
-Counterpart of ``fav_tpu/models/pretrain.py``, every mode and flag but
-``--shard`` (sharded ensemble training over a device mesh, ROADMAP.md
-Queue 1 item 10, raises ``NotImplementedError``): train the classifier
+Counterpart of ``fav_tpu/models/pretrain.py``, every mode and flag: train the classifier
 (any ``--arch``, with CE, AugMix and its op options, SAM or DeepAugment),
 an N-member deep ensemble (plain CE, ``--augmix`` JS or ``--augmix-ce``),
 the conv autoencoder, an MC-dropout distilled student or a KD student of
@@ -22,16 +21,28 @@ reconstruction-error baseline on 512 held-out images. Weights go to
 leading member axis) beside ``<out>.metadata.json`` with the JAX
 package's metadata keys, the layout ``utils/checkpoint.py:load_weights``
 reads back.
+
+``--shard`` with ``--ensemble N`` in a world of more than one rank
+(``torchrun``, or a world the caller joined: ``parallel/dist.py``) trains
+over the mesh ``auto_mesh_shape(world, N)``: members on the ``ensemble``
+axis, the batch on ``data`` (``models/train.py``), the same trajectory as
+one rank's run. The members are gathered to rank 0, which alone
+calibrates, prints the metadata and writes the weights; every rank returns
+the metadata. With one rank it trains unsharded, as ``fav_tpu`` does on one
+device.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import os
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fav_tpu_torch.config import ModelParams, model_params_from_metadata
 from fav_tpu_torch.data.cifar import index_iterator, load_cifar10
@@ -40,10 +51,12 @@ from fav_tpu_torch.models.calibration import auroc, expected_calibration_error, 
 from fav_tpu_torch.models.cnn import ConvAutoencoder, create_autoencoder, create_model
 from fav_tpu_torch.models.conformal import calibration_metadata
 from fav_tpu_torch.models.distill import distill_ensemble, distill_mc_dropout
-from fav_tpu_torch.models.train import (create_train_state, ensemble_train_step, make_ensemble_megastep,
+from fav_tpu_torch.models.train import (create_train_state, ensemble_train_step, make_ensemble_megastep, step_seed,
                                         train_autoencoder, train_classifier)
 from fav_tpu_torch.models.uncertainty import init_ensemble
-from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR, load_weights, save_flax_npz, torch_to_flax
+from fav_tpu_torch.parallel.dist import current_world, init_world
+from fav_tpu_torch.parallel.mesh import auto_mesh_shape, build_mesh, ensemble_sharding
+from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR, flax_to_torch, load_weights, save_flax_npz, torch_to_flax
 
 __all__ = ["DEFAULT_OUT_DIR", "main"]
 
@@ -62,7 +75,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--ensemble", type=int, default=0,
                    help="train an N-member deep ensemble (stacked weights for the server's ensemble mode)")
     p.add_argument("--shard", action="store_true",
-                   help="shard ensemble training over all visible devices (not ported: ROADMAP.md Queue 1 item 10)")
+                   help="shard ensemble training over the ranks of the world (torchrun): members over the ensemble "
+                        "axis, the batch over the data axis")
     p.add_argument("--widths", type=str, default="", help="comma-separated stage widths (default: ModelParams)")
     p.add_argument("--arch", type=str, default="vgg", choices=("vgg", "resnet", "vit"),
                    help="classifier family (models/cnn.py)")
@@ -133,9 +147,6 @@ def _validate(parser: argparse.ArgumentParser, args: argparse.Namespace) -> None
     if args.megastep and (args.distill_mc or args.autoencoder):
         parser.error("--megastep does not cover --distill-mc/--autoencoder (their per-step loops are not "
                      "index-stream based)")
-    if args.shard:
-        raise NotImplementedError("pretrain: --shard (ensemble training sharded over a device mesh) is not ported "
-                                  "yet (ROADMAP.md Queue 1 item 10)")
 
 
 def _widths(args) -> tuple[int, ...] | None:
@@ -199,29 +210,35 @@ def _teacher(path: str | None, default: str, dev):
     return (*load_weights(prefix.name, device=dev, directory=prefix.parent), str(prefix))
 
 
-def _train_ensemble(model, ds, args, dev) -> list[torch.nn.Module]:
+def _train_ensemble(model, ds, args, dev, mesh=None) -> list[torch.nn.Module]:
     """N members from independent initialisations (one generator seeded
-    ``seed``), each with its own AdamW, stepped on one index stream by a
-    generator seeded ``seed + 1``; ``--megastep`` runs the bulk as
-    device-resident chunks."""
+    ``seed``), each with its own AdamW, stepped on one index stream, step i
+    seeded ``step_seed(seed + 1, i)``; ``--megastep`` runs the bulk as
+    device-resident chunks. With ``mesh``, every rank draws all N
+    initialisations and trains its members of the ensemble axis; returns
+    those."""
     members = init_ensemble(model.to(dev), torch.Generator(device=dev).manual_seed(args.seed), args.ensemble)
+    if mesh is not None:
+        members = members[ensemble_sharding(mesh, args.ensemble)]
     states = [create_train_state(m, args.lr) for m in members]
     aug = dict(augmix=args.augmix or args.augmix_ce, js_lam=args.js_lam,
                augmix_mode="ce" if args.augmix_ce else "js")
     idx_it = index_iterator(ds.train_images.shape[0], args.batch, seed=args.seed)
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    talk = mesh is None or dist.get_rank() == 0
 
     def log(done, metrics):
-        print(f"step {done}: member losses {[round(float(v), 4) for v in metrics['loss']]}")
+        if talk:
+            print(f"step {done}: member losses {[round(float(v), 4) for v in metrics['loss']]}")
 
     steps_done = 0
     if args.megastep > 0:
-        mega = make_ensemble_megastep(device=dev, **aug)
-        images_all = torch.from_numpy(ds.train_images).to(dev)
+        mega = make_ensemble_megastep(device=dev, mesh=mesh, **aug)
+        images_all = torch.from_numpy(ds.train_images).to(dev)  # replicated on every rank
         labels_all = torch.from_numpy(ds.train_labels).to(dev)
         while args.steps - steps_done >= args.megastep:
             chunk = np.stack([next(idx_it) for _ in range(args.megastep)])
-            states, m = mega(states, images_all, labels_all, chunk, gen)
+            seeds = [step_seed(args.seed + 1, steps_done + k) for k in range(args.megastep)]
+            states, m = mega(states, images_all, labels_all, chunk, seeds)
             steps_done += args.megastep
             if args.log_every and (steps_done % args.log_every == 0 or args.megastep >= args.log_every):
                 log(steps_done, {k: v[-1] for k, v in m.items()})
@@ -229,10 +246,46 @@ def _train_ensemble(model, ds, args, dev) -> list[torch.nn.Module]:
         idx = next(idx_it)
         x = torch.from_numpy(ds.train_images[idx]).to(dev)
         y = torch.from_numpy(ds.train_labels[idx]).to(dev)
-        m = ensemble_train_step(states, x, y, gen, **aug)
+        m = ensemble_train_step(states, x, y, step_seed(args.seed + 1, i), mesh=mesh, **aug)
         if args.log_every and (i + 1) % args.log_every == 0:
             log(i + 1, m)
     return [st.model.eval() for st in states]
+
+
+def _shard_mesh(args, dev):
+    """The mesh of ``--shard``: ``auto_mesh_shape(world, N)`` over the world
+    this process is in (joining ``torchrun``'s), or None with one rank."""
+    if not (args.shard and args.ensemble):
+        return None
+    world = current_world()
+    if world is None and int(os.environ.get("WORLD_SIZE", "1") or 1) > 1:
+        world = init_world(dev)
+    if world is None or world.size == 1:
+        return None
+    mesh = build_mesh(auto_mesh_shape(world.size, args.ensemble))
+    if world.rank == 0:
+        print(f"sharded ensemble training over mesh {mesh.shape}")
+    return mesh
+
+
+def _gather_members(mesh, trained: list[torch.nn.Module], template: torch.nn.Module, size: int, dev):
+    """Every member on rank 0, in order (None on the other ranks): each
+    ensemble shard's first data rank sends its members' weights."""
+    keep = ensemble_sharding(mesh, size)
+    mine = None
+    if mesh.index("data") == 0 and mesh.index("model") == 0:
+        mine = {keep.start + i: torch_to_flax(m.state_dict()) for i, m in enumerate(trained)}
+    parts = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+    dist.gather_object(mine, parts, dst=0)
+    if dist.get_rank() != 0:
+        return None
+    trees = {k: v for part in parts if part for k, v in part.items()}
+    members = []
+    for k in range(size):
+        m = copy.deepcopy(template)
+        m.load_state_dict(flax_to_torch(trees[k]), strict=True)
+        members.append(m.to(dev).eval())
+    return members
 
 
 def _pretrain_autoencoder(args, ds, dev) -> dict:
@@ -341,8 +394,15 @@ def main(argv: list[str] | None = None, dataset=None) -> dict:
     if widths:
         mp = ModelParams(arch=args.arch, widths=widths, dense_width=widths[-1], standardize_input=args.standardize)
     model = create_model(mp)
+    mesh = _shard_mesh(args, dev)
     if args.ensemble:
-        trained = _train_ensemble(model, ds, args, dev)
+        trained = _train_ensemble(model, ds, args, dev, mesh)
+        if mesh is not None:
+            trained = _gather_members(mesh, trained, model, args.ensemble, dev)
+            if trained is None:  # rank 0 calibrates and writes
+                out = [None]
+                dist.broadcast_object_list(out, src=0)
+                return out[0]
         stacked = [torch_to_flax(m.state_dict()) for m in trained]
         tree = {k: np.stack([t[k] for t in stacked]) for k in stacked[0]}
     else:
@@ -377,7 +437,10 @@ def main(argv: list[str] | None = None, dataset=None) -> dict:
            else {}),
     }
     print(json.dumps(metrics, indent=2))
-    return _save(args.out, "ensemble" if args.ensemble else "classifier", tree, metrics)
+    saved = _save(args.out, "ensemble" if args.ensemble else "classifier", tree, metrics)
+    if mesh is not None:
+        dist.broadcast_object_list([saved], src=0)
+    return saved
 
 
 if __name__ == "__main__":

@@ -19,9 +19,21 @@ from the JAX package, and why:
   then the same Adam step, the same algebra with other roundings.
 * Randomness comes from one ``torch.Generator`` threaded through the run:
   each step draws its views' augmentations and then its dropout masks from
-  it, in that order; an ensemble step does so member after member. The
-  megasteps draw in the same order, so per-step and megastep runs from one
-  generator take the same trajectory.
+  it, in that order. The megasteps draw in the same order, so per-step and
+  megastep runs from one generator take the same trajectory.
+* An ensemble step instead takes an integer seed, and member ``m`` draws
+  its views and masks from a generator of its own seeded ``fold_in(seed,
+  m)`` (:func:`member_generator`), as ``fav_tpu`` vmaps the member step
+  over one key a member (:418-438): a rank that holds member 3 draws as
+  member 3 does in the whole ensemble. The run's step ``i`` takes
+  ``fold_in(run seed, i)`` (:func:`step_seed`).
+* Sharded over a mesh (``parallel/mesh.py``), a rank steps its members of
+  the ``ensemble`` axis on its rows of the ``data`` axis: the views and
+  dropout masks are drawn for the whole batch and cut to its rows, each
+  member's gradients are averaged over the ``data`` group before AdamW
+  (SUM then a divide: the shards are equal), and the logged loss and
+  accuracy are averaged the same way; the optimizer state stays with the
+  member.
 * Each step core takes its views, so that a test can feed it ``fav_tpu``'s.
 * SAM's two backward passes see the same dropout masks, as JAX reuses its
   dropout key: the generator's state is taken before the first forward and
@@ -52,8 +64,10 @@ from torch import nn
 from fav_tpu_torch.data.cifar import Dataset, batch_iterator, index_iterator
 from fav_tpu_torch.device import resolve_device
 from fav_tpu_torch.models.cnn import init_params, training_norms
-from fav_tpu_torch.ops.augment import augmix, js_consistency
+from fav_tpu_torch.ops.augment import augmix, augmix_apply, augmix_draws, js_consistency, shard_draws
 from fav_tpu_torch.ops.deepaugment import deepaugment, load_augmenter
+from fav_tpu_torch.ops.random import fold_in
+from fav_tpu_torch.parallel.mesh import Mesh, all_gather_rows, all_reduce_mean, data_sharding
 
 __all__ = [
     "TrainState",
@@ -69,6 +83,9 @@ __all__ = [
     "deepaugment_views",
     "deepaugment_train_step",
     "autoencoder_train_step",
+    "member_generator",
+    "step_seed",
+    "row_masks",
     "ensemble_member_views",
     "ensemble_member_step_core",
     "ensemble_train_step",
@@ -98,10 +115,20 @@ def _backward(state: TrainState, loss: torch.Tensor) -> None:
     loss.backward()
 
 
-def _update(state: TrainState, loss: torch.Tensor) -> None:
+def _update(state: TrainState, loss: torch.Tensor, reduce: Callable | None = None) -> None:
     """Backward and one AdamW step; the gradients stay on the parameters
-    until the next step clears them."""
+    until the next step clears them. ``reduce`` maps the flat gradient of
+    every parameter, in order, to the one to apply (a data shard's mean over
+    the ``data`` group)."""
     _backward(state, loss)
+    if reduce is not None:
+        params = [p for p in state.model.parameters() if p.grad is not None]
+        flat = reduce(torch.cat([p.grad.reshape(-1) for p in params]))
+        start = 0
+        for p in params:
+            n = p.grad.numel()
+            p.grad.copy_(flat[start:start + n].view_as(p.grad))
+            start += n
     state.optimizer.step()
     state.step += 1
 
@@ -111,10 +138,10 @@ def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def _ce_objective(model: nn.Module, images: torch.Tensor, labels: torch.Tensor,
-                  generator: torch.Generator | None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+                  generator: torch.Generator | None, masks=None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """``_ce_loss`` (:55): a train-mode forward, mean CE and accuracy."""
     with training_norms():
-        logits = model(images, train=True, generator=generator)
+        logits = model(images, train=True, generator=generator, masks=masks)
     loss = F.cross_entropy(logits, labels.long())
     return loss, {"loss": loss.detach(), "accuracy": _accuracy(logits.detach(), labels)}
 
@@ -143,14 +170,14 @@ def augmix_views(generator: torch.Generator, images: torch.Tensor, plain: bool =
 
 
 def augmix_objective(model: nn.Module, images: torch.Tensor, labels: torch.Tensor, aug1: torch.Tensor,
-                     aug2: torch.Tensor, js_lam: float,
-                     generator: torch.Generator | None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+                     aug2: torch.Tensor, js_lam: float, generator: torch.Generator | None,
+                     masks=None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One train-mode forward over ``[clean; aug1; aug2]`` (3B images), the
     loss CE on the clean third + ``js_lam`` x JS across the three, and the
     step's metrics."""
     b = images.shape[0]
     with training_norms():
-        logits = model(torch.cat([images, aug1, aug2], dim=0), train=True, generator=generator)
+        logits = model(torch.cat([images, aug1, aug2], dim=0), train=True, generator=generator, masks=masks)
     lc, la, lb = logits[:b], logits[b:2 * b], logits[2 * b:]
     ce = F.cross_entropy(lc, labels.long())
     js = js_consistency(lc, la, lb)
@@ -260,77 +287,145 @@ def autoencoder_train_step(state: TrainState, images: torch.Tensor) -> dict[str,
 # ── ensembles ──────────────────────────────────────────────────────────────
 
 
+_SEED_MASK = (1 << 63) - 1  # torch.Generator.manual_seed takes an int64
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step`` (from 0) of an ensemble run seeded ``seed``."""
+    return fold_in(seed, step) & _SEED_MASK
+
+
+def member_generator(seed: int, member: int, device) -> torch.Generator:
+    """Member ``member``'s generator in the ensemble step seeded ``seed``."""
+    return torch.Generator(device=device).manual_seed(fold_in(seed, member) & _SEED_MASK)
+
+
+def row_masks(generator: torch.Generator, batch: int, rows: slice):
+    """The dropout uniforms of a data shard (``masks`` of the models'
+    forwards): for a forward over k stacked segments of the shard's rows
+    (``[clean; view ...]``), the draw of the whole batch's k segments, cut
+    to this shard's rows of each, so the shard keeps the units the whole
+    batch's forward keeps."""
+    local = rows.stop - rows.start
+
+    def uniforms(shape) -> torch.Tensor:
+        k = shape[0] // local
+        full = torch.rand((k * batch, *shape[1:]), generator=generator, device=generator.device, dtype=torch.float32)
+        return full.view(k, batch, *shape[1:])[:, rows].reshape(shape)
+
+    return uniforms
+
+
 def ensemble_member_views(generator: torch.Generator, images: torch.Tensor, augmix_on: bool, augmix_mode: str,
-                          plain: bool = False) -> tuple[torch.Tensor, ...]:
-    """A member's own views: none for plain CE, one for ``ce``, two for ``js``."""
+                          plain: bool = False, rows: slice | None = None) -> tuple[torch.Tensor, ...]:
+    """A member's own views: none for plain CE, one for ``ce``, two for ``js``.
+    With ``rows``, the views of those rows of ``images`` (the whole batch),
+    drawn for the whole batch."""
     if not augmix_on:
         return ()
-    if augmix_mode == "ce":
-        return (augmix(generator, images, plain=plain),)
-    return augmix_views(generator, images, plain)
+    count = 1 if augmix_mode == "ce" else 2
+    if rows is None:
+        if count == 1:
+            return (augmix(generator, images, plain=plain),)
+        return augmix_views(generator, images, plain)
+    b, h, w, _ = images.shape
+    mine = images[rows]
+    return tuple(augmix_apply(mine, shard_draws(augmix_draws(generator, b, image_size=(h, w)), rows), plain=plain)
+                 for _ in range(count))
 
 
 def ensemble_member_step_core(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                               views: tuple[torch.Tensor, ...], augmix_mode: str, js_lam: float,
-                              generator: torch.Generator | None) -> dict:
+                              generator: torch.Generator | None, masks=None, reduce: Callable | None = None) -> dict:
     """``_ensemble_member_step``'s update (:377-413) given the member's views:
     plain CE without views; with one view (``ce``), CE over ``[clean;
     view]`` with both label halves; with two (``js``), the AugMix + JS
-    objective. Metrics: loss and accuracy."""
+    objective. Metrics: loss and accuracy. ``masks`` and ``reduce`` are a
+    data shard's dropout uniforms and gradient mean."""
     if not views:
-        loss, metrics = _ce_objective(state.model, images, labels, generator)
+        loss, metrics = _ce_objective(state.model, images, labels, generator, masks)
     elif augmix_mode == "ce":
         loss, metrics = _ce_objective(state.model, torch.cat([images, views[0]]), torch.cat([labels, labels]),
-                                      generator)
+                                      generator, masks)
     else:
-        loss, metrics = augmix_objective(state.model, images, labels, views[0], views[1], js_lam, generator)
+        loss, metrics = augmix_objective(state.model, images, labels, views[0], views[1], js_lam, generator, masks)
         metrics = {k: metrics[k] for k in ("loss", "accuracy")}
-    _update(state, loss)
+    _update(state, loss, reduce)
     return metrics
 
 
-def ensemble_train_step(states: list[TrainState], images: torch.Tensor, labels: torch.Tensor,
-                        generator: torch.Generator, augmix: bool = False, js_lam: float = 12.0,
-                        augmix_mode: str = "js", plain: bool = False) -> dict[str, torch.Tensor]:
+def ensemble_train_step(states: list[TrainState], images: torch.Tensor, labels: torch.Tensor, seed: int,
+                        augmix: bool = False, js_lam: float = 12.0, augmix_mode: str = "js", plain: bool = False,
+                        mesh: Mesh | None = None) -> dict[str, torch.Tensor]:
     """One step of every member on the same batch (``make_ensemble_train_step``
-    :418), each with its own views and dropout masks, drawn member after
-    member. Returns each metric as an [M] tensor."""
+    :418), member ``m`` drawing its views and dropout masks from
+    ``member_generator(seed, m)``. Returns each metric as an [M] tensor.
+
+    With ``mesh``, ``states`` are this rank's members of the ``ensemble``
+    axis (its ``len(states)`` members at its place on the axis) and
+    ``images`` and ``labels`` the whole batch, of which it trains on its
+    rows of the ``data`` axis; the metrics are every member's, averaged over
+    the data shards and gathered over the ensemble axis."""
     if augmix_mode not in ("js", "ce"):
         raise ValueError(f"augmix_mode must be 'js' or 'ce', got {augmix_mode!r}")
+    first, rows, masks, reduce = 0, None, None, None
+    sharded_data = mesh is not None and mesh.size("data") > 1
+    if mesh is not None:
+        first = mesh.index("ensemble") * len(states)
+    if sharded_data:
+        rows = data_sharding(mesh, images.shape[0])
+
+        def reduce(flat):
+            return all_reduce_mean(flat, mesh, "data")
+
     out = []
-    for st in states:
-        views = ensemble_member_views(generator, images, augmix, augmix_mode, plain)
-        out.append(ensemble_member_step_core(st, images, labels, views, augmix_mode, js_lam, generator))
-    return {k: torch.stack([m[k] for m in out]) for k in out[0]}
+    for i, st in enumerate(states):
+        gen = member_generator(seed, first + i, images.device)
+        views = ensemble_member_views(gen, images, augmix, augmix_mode, plain, rows)
+        if sharded_data:
+            masks = row_masks(gen, images.shape[0], rows)
+            x, y = images[rows], labels[rows]
+        else:
+            x, y = images, labels
+        out.append(ensemble_member_step_core(st, x, y, views, augmix_mode, js_lam, gen, masks, reduce))
+    metrics = {k: torch.stack([m[k] for m in out]) for k in out[0]}
+    if mesh is not None:
+        metrics = {k: all_gather_rows(all_reduce_mean(v, mesh, "data"), mesh, "ensemble") for k, v in metrics.items()}
+    return metrics
 
 
-def _resident_loop(step: Callable, device) -> Callable:
-    """A megastep over ``step(state, images, labels, generator)``: the train
+def _resident_loop(step: Callable, device, per_step: bool = False) -> Callable:
+    """A megastep over ``step(state, images, labels, draws)``: the train
     set stays on the device, each call uploads one [K, B] index chunk and
     runs K steps, gathering each batch on the device. Returns
-    ``megastep(state, images_all, labels_all, idx_chunk, generator) ->
-    (state, metrics)``, each metric stacked over the chunk's steps."""
+    ``megastep(state, images_all, labels_all, idx_chunk, draws) -> (state,
+    metrics)``, each metric stacked over the chunk's steps; ``draws`` is the
+    generator every step draws from, or with ``per_step`` a sequence of K,
+    one a step."""
     dev = resolve_device(device)
 
-    def megastep(state, images_all: torch.Tensor, labels_all: torch.Tensor, idx_chunk,
-                 generator: torch.Generator):
+    def megastep(state, images_all: torch.Tensor, labels_all: torch.Tensor, idx_chunk, draws):
         if images_all.device.type != dev.type or labels_all.device.type != dev.type:
             raise ValueError(f"megastep: the train set must lie on {dev}")
         idx = torch.as_tensor(np.asarray(idx_chunk), device=dev).long()  # one upload of [K, B]
-        steps = [step(state, images_all.index_select(0, i), labels_all.index_select(0, i), generator)
-                 for i in idx]
+        if per_step and len(draws) != idx.shape[0]:
+            raise ValueError(f"megastep: {len(draws)} step seeds for {idx.shape[0]} steps")
+        steps = [step(state, images_all.index_select(0, i), labels_all.index_select(0, i),
+                      draws[k] if per_step else draws) for k, i in enumerate(idx)]
         return state, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
     return megastep
 
 
 def make_ensemble_megastep(augmix: bool = False, js_lam: float = 12.0, augmix_mode: str = "js",
-                           device: str | torch.device | None = None) -> Callable:
+                           device: str | torch.device | None = None, mesh: Mesh | None = None) -> Callable:
     """Device-resident K-step ensemble megastep (:448): ``megastep(states,
-    images_all, labels_all, idx_chunk, generator) -> (states, metrics)``,
-    each metric [K, M]; the per-step loop's draws in its order."""
-    return _resident_loop(lambda sts, x, y, g: ensemble_train_step(sts, x, y, g, augmix, js_lam, augmix_mode),
-                          device)
+    images_all, labels_all, idx_chunk, seeds) -> (states, metrics)``, K
+    step seeds, each metric [K, M]; the per-step loop's draws. With
+    ``mesh``, the train set is replicated (``fav_tpu/models/pretrain.py``
+    :69-70) and each step runs sharded as :func:`ensemble_train_step`."""
+    return _resident_loop(lambda sts, x, y, s: ensemble_train_step(sts, x, y, s, augmix, js_lam, augmix_mode,
+                                                                   mesh=mesh), device, per_step=True)
 
 
 def _step_fn(augmix: bool, js_lam: float, freq: bool = False, occlude: bool = False, bars: bool = False,

@@ -57,15 +57,18 @@ def mutual_information(member_probs: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def mc_dropout_logits(model: nn.Module, images: torch.Tensor, generator: torch.Generator | None,
-                      num_samples: int = 20, masks=None, max_rows: int = 0) -> torch.Tensor:
+                      num_samples: int = 20, masks=None, max_rows: int = 0, batch: int = 0) -> torch.Tensor:
     """The logits of ``num_samples`` dropout replicas of ``model`` on
     ``images`` [B, H, W, C]: [K, B, C] from train-mode forwards on the
     replicas folded into the batch, replica-major, their masks drawn from
-    ``generator`` (or replayed from ``masks``, the test hook of the models'
-    forwards). ``max_rows`` > 0 folds at most that many rows a forward
-    (at least one replica), bounding the activations' memory."""
+    ``generator`` (or taken from ``masks``, the models' hook: replayed
+    masks, or a data shard's uniforms). ``max_rows`` > 0 folds at most that
+    many rows of a batch of ``batch`` images (``B`` when 0; a shard passes
+    the whole batch's) a forward (at least one replica), bounding the
+    activations' memory; a shard so folds its replicas as the whole batch
+    does."""
     b = images.shape[0]
-    per = num_samples if max_rows <= 0 else max(1, min(num_samples, max_rows // b))
+    per = num_samples if max_rows <= 0 else max(1, min(num_samples, max_rows // (batch or b)))
     out = []
     for start in range(0, num_samples, per):
         k = min(per, num_samples - start)

@@ -51,6 +51,7 @@ __all__ = [
     "occlude_bars",
     "num_ops",
     "augmix_draws",
+    "shard_draws",
     "augmix_apply",
     "augmix",
     "js_consistency",
@@ -311,6 +312,23 @@ def augmix_draws(generator: torch.Generator, b: int, width: int = 3, max_depth: 
         tx=signed[3] * MAX_TRANSLATE * w, ty=signed[4] * MAX_TRANSLATE * h,
         posterize=mags[5], solarize=mags[6], autocontrast=mags[7], **extra,
     )
+
+
+def shard_draws(draws: AugMixDraws, rows: slice) -> AugMixDraws:
+    """The draws of images ``rows`` of a batch: what :func:`augmix_apply`
+    takes for those images alone, so that a data shard augments its rows as
+    the whole batch's call does (every op is per image)."""
+    b = draws.blend.shape[0]
+    width = draws.ws.shape[1]
+
+    def cut(v):
+        if v is None:
+            return None
+        if v.shape[0] == b:
+            return v[rows]
+        return v.view(width, b, *v.shape[1:])[:, rows].reshape(-1, *v.shape[1:])  # chain-major rows
+
+    return AugMixDraws(*(cut(v) for v in draws))
 
 
 def augmix_apply(images: torch.Tensor, draws: AugMixDraws, plain: bool = False, bf16: bool = False) -> torch.Tensor:

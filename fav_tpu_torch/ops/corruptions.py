@@ -26,6 +26,15 @@ draw ``d`` is word ``e % 4`` of ``philox((e // 4, d), seed)``):
   one per pixel;
 * defocus and zoom blur, brightness, contrast, pixelate and JPEG draw nothing.
 
+Shards. Every family of the evaluation grid takes ``row``, the absolute
+index of ``x``'s first image in the batch it is a shard of (0 for a whole
+batch). A per-image draw then starts at that image's place in the whole
+batch's field (``ops/random.py``, counter offset ``row`` times the
+elements an image takes), so a shard is corrupted exactly as rows ``row
+..`` of the whole batch; motion blur's angle is one draw per cell and does
+not move. K5's glass (``glass_blur``, off the grid) draws for the batch it
+is given.
+
 The plain versions here are what a CPU tensor runs; the CUDA kernels of
 ``ops/corruptions_cuda.py`` compute the same arithmetic in the same order,
 so on the card each kernel is held to its plain version element by element.
@@ -45,7 +54,7 @@ import numpy as np
 import torch
 
 from fav_tpu_torch.ops import image
-from fav_tpu_torch.ops.random import uniform01
+from fav_tpu_torch.ops.random import counter_offset, uniform01
 
 __all__ = [
     "CORRUPTION_NAMES",
@@ -202,11 +211,13 @@ def sev_param(table, severity: int):
     return table[int(severity) - 1]
 
 
-def uniform_field(seed: int, shape, draw: int, device=None) -> torch.Tensor:
+def uniform_field(seed: int, shape, draw: int, device=None, row: int = 0) -> torch.Tensor:
     """Draw ``draw`` of ``seed`` as float32 uniforms in (0, 1] of ``shape``,
     element order row-major (the plain draw step; the card's launcher in
-    ``ops/corruptions_cuda.py`` writes the same words)."""
-    return uniform01(seed, math.prod(shape), draw, device=device).reshape(tuple(shape))
+    ``ops/corruptions_cuda.py`` writes the same words). ``row`` > 0 takes
+    the rows ``row ..`` of a field whose outermost axis is the batch."""
+    offset = counter_offset(row, math.prod(shape[1:]))
+    return uniform01(seed, math.prod(shape), draw, device=device, offset=offset).reshape(tuple(shape))
 
 
 # ── transforms of given draws ─────────────────────────────────────────────
@@ -630,16 +641,18 @@ def local_resample_from_offsets(x: torch.Tensor, d: torch.Tensor) -> torch.Tenso
     return x.reshape(b * h * w, c).index_select(0, flat.reshape(-1)).reshape(b, h, w, c)
 
 
-def grid_glass_blur_plain(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field) -> torch.Tensor:
+def grid_glass_blur_plain(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field,
+                          row: int = 0) -> torch.Tensor:
     """The grid's glass blur: blur, ``iters`` rounds of the 2-D local
     resample (round t's offsets from draw t of ``seed``, one uniform per
-    (b, i, j, axis) element, ``uniform(seed, shape, draw, device)``), blur,
-    clip."""
+    (b, i, j, axis) element, ``uniform(seed, shape, draw, device, row=)``),
+    blur, clip."""
     b, h, w, _ = x.shape
 
     def resample(y, m, iters):
         for t in range(iters):
-            y = local_resample_from_offsets(y, local_offsets(uniform(seed, (b, h, w, 2), t, x.device), m))
+            u = uniform(seed, (b, h, w, 2), t, x.device, row=row)
+            y = local_resample_from_offsets(y, local_offsets(u, m))
         return y
 
     return glass_blur_with(x, severity, resample)
@@ -734,20 +747,20 @@ def elastic_from_fields_packed(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tens
 
 # ── plain versions: Philox draws, then the transform ──────────────────────
 
-def gaussian_noise_plain(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def gaussian_noise_plain(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
     """Plain K1: Box-Muller on draws 0 and 1, then ``gaussian_from_normal``."""
-    z = box_muller(uniform_field(seed, x.shape, 0, x.device), uniform_field(seed, x.shape, 1, x.device))
+    z = box_muller(uniform_field(seed, x.shape, 0, x.device, row), uniform_field(seed, x.shape, 1, x.device, row))
     return gaussian_from_normal(x, z, severity)
 
 
-def shot_noise_plain(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def shot_noise_plain(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
     """Plain K2: draw 0, then ``shot_from_uniform``."""
-    return shot_from_uniform(x, uniform_field(seed, x.shape, 0, x.device), severity)
+    return shot_from_uniform(x, uniform_field(seed, x.shape, 0, x.device, row), severity)
 
 
-def impulse_noise_plain(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def impulse_noise_plain(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
     """Plain K3: draw 0, then ``impulse_from_uniform``."""
-    return impulse_from_uniform(x, uniform_field(seed, x.shape, 0, x.device), severity)
+    return impulse_from_uniform(x, uniform_field(seed, x.shape, 0, x.device, row), severity)
 
 
 def corrupt_normalize_plain(seed: int, x: torch.Tensor, sigma: float = 0.0, bright: float = 0.0,
@@ -760,12 +773,12 @@ def corrupt_normalize_plain(seed: int, x: torch.Tensor, sigma: float = 0.0, brig
     return corrupt_normalize_from_normal(x, z, sigma, bright, contrast, mean, scale)
 
 
-def brightness_plain(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def brightness_plain(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
     """Plain K4 as brightness (the seed is unused, as in the TPU kernel)."""
     return brightness(x, severity)
 
 
-def contrast_plain(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def contrast_plain(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
     """Plain K4 as contrast (the seed is unused)."""
     return contrast(x, severity)
 
@@ -793,44 +806,48 @@ def glass_blur_plain(seed: int, x: torch.Tensor, severity: int = 3, packed: bool
     return glass_blur_with(x, severity, lambda y, m, iters: resample(seed, y, m, iters))
 
 
-def motion_blur_plain(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field) -> torch.Tensor:
-    """Draw 0, element 0 -> the angle index, then ``motion_from_index``."""
+def motion_blur_plain(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field,
+                      row: int = 0) -> torch.Tensor:
+    """Draw 0, element 0 -> the angle index, then ``motion_from_index``;
+    one draw for the cell, whatever shard ``row`` starts."""
     return motion_from_index(x, motion_index(uniform(seed, (1,), 0, x.device)), severity)
 
 
-def snow_plain(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field) -> torch.Tensor:
+def snow_plain(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field, row: int = 0) -> torch.Tensor:
     """Draws 0 and 1 -> Box-Muller normal per pixel, then ``snow_from_normal``."""
     b, h, w, _ = x.shape
-    z = box_muller(uniform(seed, (b, h, w, 1), 0, x.device), uniform(seed, (b, h, w, 1), 1, x.device))
+    z = box_muller(uniform(seed, (b, h, w, 1), 0, x.device, row=row),
+                   uniform(seed, (b, h, w, 1), 1, x.device, row=row))
     return snow_from_normal(x, z, severity)
 
 
-def _octaves(seed: int, x: torch.Tensor, uniform) -> list[torch.Tensor]:
+def _octaves(seed: int, x: torch.Tensor, uniform, row: int) -> list[torch.Tensor]:
     b, h, w, _ = x.shape
-    return [uniform(seed, shape, o, x.device) for o, shape in enumerate(octave_shapes(b, h, w))]
+    return [uniform(seed, shape, o, x.device, row=row) for o, shape in enumerate(octave_shapes(b, h, w))]
 
 
-def frost_plain(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field) -> torch.Tensor:
+def frost_plain(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field, row: int = 0) -> torch.Tensor:
     """Draw o -> octave o's grid, then ``frost_from_octaves``."""
-    return frost_from_octaves(x, _octaves(seed, x, uniform), severity)
+    return frost_from_octaves(x, _octaves(seed, x, uniform, row), severity)
 
 
-def fog_plain(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field) -> torch.Tensor:
+def fog_plain(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field, row: int = 0) -> torch.Tensor:
     """Draw o -> octave o's grid, then ``fog_from_octaves``."""
-    return fog_from_octaves(x, _octaves(seed, x, uniform), severity)
+    return fog_from_octaves(x, _octaves(seed, x, uniform, row), severity)
 
 
-def elastic_fields(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field):
+def elastic_fields(seed: int, x: torch.Tensor, severity: int = 3, uniform=uniform_field, row: int = 0):
     """Draws 0 (rows) and 1 (columns), one per pixel, then
     ``elastic_fields_from_uniforms``."""
     b, h, w, _ = x.shape
-    return elastic_fields_from_uniforms(uniform(seed, (b, h, w, 1), 0, x.device),
-                                        uniform(seed, (b, h, w, 1), 1, x.device), severity)
+    return elastic_fields_from_uniforms(uniform(seed, (b, h, w, 1), 0, x.device, row=row),
+                                        uniform(seed, (b, h, w, 1), 1, x.device, row=row), severity)
 
 
-def elastic_transform_plain(seed: int, x: torch.Tensor, severity: int = 3, packed: bool = False) -> torch.Tensor:
+def elastic_transform_plain(seed: int, x: torch.Tensor, severity: int = 3, packed: bool = False,
+                            row: int = 0) -> torch.Tensor:
     """``packed`` takes the packed warp where G > 1, as ``elastic_transform_pallas``."""
-    ys, xs = elastic_fields(seed, x, severity)
+    ys, xs = elastic_fields(seed, x, severity, row=row)
     g = packed_group(x.shape[0], x.shape[2] + 2 * (elastic_margin(severity) + 1)) if packed else 1
     if g > 1:
         return elastic_from_fields_packed(x, ys, xs, severity, g)
@@ -839,7 +856,7 @@ def elastic_transform_plain(seed: int, x: torch.Tensor, severity: int = 3, packe
 
 def _seedless(transform):
     """``fn(seed, x, severity)`` of a family that draws nothing."""
-    def fn(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+    def fn(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
         return transform(x, severity)
 
     fn.__name__ = f"{transform.__name__}_plain"

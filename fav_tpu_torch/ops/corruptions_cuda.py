@@ -22,6 +22,12 @@ over float32 batch-first images (NHWC at the main path), routed as
   random fields of motion, snow, frost and fog drawn on the card by the
   Philox helper.
 
+The drawing wrappers (K1-K3, ``uniform``, and the families built on them)
+take ``row``, the absolute index of ``x``'s first image in the batch it is
+a shard of; the kernels then start their Philox counters there (``base`` in
+``csrc/corruptions.cu``) and a shard draws exactly its rows of the whole
+batch's field (``ops/corruptions.py``, "Shards").
+
 A kernel wrapper checks its input and then:
 
 * on a CPU tensor runs the plain version of ``ops/corruptions.py``;
@@ -44,13 +50,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
 
 from fav_tpu_torch.ops import corruptions as plain
 from fav_tpu_torch.ops._build import load_library
-from fav_tpu_torch.ops.random import seed_key
+from fav_tpu_torch.ops.random import counter_offset, seed_key
 
 __all__ = [
     "KERNELS",
@@ -244,13 +251,13 @@ class CudaKernel:
 KERNELS = {
     # K1, replaces corruptions_pallas.py:_gaussian_kernel
     "gaussian_noise": CudaKernel("corruptions", "fav_gaussian_noise",
-                                 [_P, _P, _I64, _U32, _U32, _F32, _P]),
+                                 [_P, _P, _I64, _I64, _U32, _U32, _F32, _P]),
     # K2, replaces _shot_kernel
     "shot_noise": CudaKernel("corruptions", "fav_shot_noise",
-                             [_P, _P, _I64, _U32, _U32, _F32, _I32, _P, _I32, _P]),
+                             [_P, _P, _I64, _I64, _U32, _U32, _F32, _I32, _P, _I32, _P]),
     # K3, replaces _impulse_kernel
     "impulse_noise": CudaKernel("corruptions", "fav_impulse_noise",
-                                [_P, _P, _I64, _U32, _U32, _F32, _F32, _P]),
+                                [_P, _P, _I64, _I64, _U32, _U32, _F32, _F32, _P]),
     # K4, replaces _photometric_kernel (brightness and contrast)
     "photometric": CudaKernel("corruptions", "fav_photometric",
                               [_P, _P, _I32, _I32, _F32, _F32, _P]),
@@ -280,7 +287,7 @@ KERNELS = {
     "shear_rows_bf16": CudaKernel("shear", "fav_shear_rows_bf16", [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]),
     "shear_cols_bf16": CudaKernel("shear", "fav_shear_cols_bf16", [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]),
     # helper, no TPU counterpart: the Philox uniforms of ops/random.py on the card
-    "philox_uniform": CudaKernel("corruptions", "fav_philox_uniform", [_P, _I64, _U32, _U32, _U32, _P]),
+    "philox_uniform": CudaKernel("corruptions", "fav_philox_uniform", [_P, _I64, _I64, _U32, _U32, _U32, _P]),
 }
 
 
@@ -310,25 +317,31 @@ def _on_cpu(x: torch.Tensor, name: str) -> bool:
     return False
 
 
-def gaussian_noise(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def _base(row: int, per_row: int) -> int:
+    """The counter base, in groups of four, of a draw whose first image is
+    image ``row`` of its batch, an image taking ``per_row`` elements."""
+    return counter_offset(row, per_row) // 4
+
+
+def gaussian_noise(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
     """K1: ``clip(x + sigma z)``, z from Box-Muller on Philox draws 0 and 1."""
     if _on_cpu(x, "gaussian_noise"):
-        return plain.gaussian_noise_plain(seed, x, severity)
+        return plain.gaussian_noise_plain(seed, x, severity, row)
     sigma = plain.sev_param(plain.GAUSSIAN_SIGMA, severity)
     out = torch.empty_like(x)
     KERNELS["gaussian_noise"].launch(
-        x.device, x.data_ptr(), out.data_ptr(), x.numel(), *seed_key(seed), sigma)
+        x.device, x.data_ptr(), out.data_ptr(), x.numel(), _base(row, x[0].numel()), *seed_key(seed), sigma)
     return out
 
 
-def impulse_noise(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def impulse_noise(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
     """K3: salt and pepper from Philox draw 0."""
     if _on_cpu(x, "impulse_noise"):
-        return plain.impulse_noise_plain(seed, x, severity)
+        return plain.impulse_noise_plain(seed, x, severity, row)
     salt, pepper = plain.impulse_thresholds(severity)
     out = torch.empty_like(x)
     KERNELS["impulse_noise"].launch(
-        x.device, x.data_ptr(), out.data_ptr(), x.numel(), *seed_key(seed), salt, pepper)
+        x.device, x.data_ptr(), out.data_ptr(), x.numel(), _base(row, x[0].numel()), *seed_key(seed), salt, pepper)
     return out
 
 
@@ -343,17 +356,17 @@ def _log_k_table(device: torch.device, k_max: int) -> torch.Tensor:
     return _log_k_tables[key]
 
 
-def shot_noise(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def shot_noise(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
     """K2: Poisson(x c) / c by the log-space inverse CDF on Philox draw 0."""
     if _on_cpu(x, "shot_noise"):
-        return plain.shot_noise_plain(seed, x, severity)
+        return plain.shot_noise_plain(seed, x, severity, row)
     c = plain.sev_param(plain.SHOT_C, severity)
     k_max = plain.shot_k_max(severity)
     log_k = _log_k_table(x.device, k_max)
     geo = shot_geometry(x.numel(), k_max)
     out = torch.empty_like(x)
     KERNELS["shot_noise"].launch(
-        x.device, x.data_ptr(), out.data_ptr(), x.numel(), *seed_key(seed), c, k_max,
+        x.device, x.data_ptr(), out.data_ptr(), x.numel(), _base(row, x[0].numel()), *seed_key(seed), c, k_max,
         log_k.data_ptr(), geo.blocks)
     return out
 
@@ -368,14 +381,14 @@ def _photometric(x: torch.Tensor, bright: float, contrast_c: float) -> torch.Ten
     return out
 
 
-def brightness(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def brightness(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
     """K4 with contrast 1: ``clip(x + b)`` (the seed is unused)."""
     if _on_cpu(x, "brightness"):
         return plain.brightness_plain(seed, x, severity)
     return _photometric(x, plain.sev_param(plain.BRIGHTNESS_C, severity), 1.0)
 
 
-def contrast(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+def contrast(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
     """K4 with brightness 0: ``clip((x - mu) c + mu)`` (the seed is unused)."""
     if _on_cpu(x, "contrast"):
         return plain.contrast_plain(seed, x, severity)
@@ -398,15 +411,19 @@ def corrupt_normalize(seed: int, x: torch.Tensor, sigma: float = 0.0, bright: fl
     return out
 
 
-def uniform(seed: int, shape, draw: int, device) -> torch.Tensor:
+def uniform(seed: int, shape, draw: int, device, row: int = 0) -> torch.Tensor:
     """Draw ``draw`` of ``seed`` as float32 uniforms in (0, 1] of ``shape``:
     on the card written by the Philox helper kernel, bit-equal to
-    ``ops/random.py``'s ``uniform01``; on the CPU ``uniform01`` itself."""
+    ``ops/random.py``'s ``uniform01``; on the CPU ``uniform01`` itself.
+    ``row`` > 0 takes the rows ``row ..`` of a field whose outermost axis is
+    the batch."""
     device = torch.device(device)
     if device.type == "cpu":
-        return plain.uniform_field(seed, shape, draw, device)
-    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    KERNELS["philox_uniform"].launch(device, out.data_ptr(), out.numel(), int(draw), *seed_key(seed))
+        return plain.uniform_field(seed, shape, draw, device, row)
+    shape = tuple(shape)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    KERNELS["philox_uniform"].launch(device, out.data_ptr(), out.numel(), _base(row, math.prod(shape[1:])), int(draw),
+                                     *seed_key(seed))
     return out
 
 
@@ -489,19 +506,20 @@ def elastic_warp(x: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, severity: 
     return out
 
 
-def elastic_transform(seed: int, x: torch.Tensor, severity: int = 3, packed: bool = False) -> torch.Tensor:
+def elastic_transform(seed: int, x: torch.Tensor, severity: int = 3, packed: bool = False,
+                      row: int = 0) -> torch.Tensor:
     """Fields from Philox draws 0 and 1 (``ops/corruptions.py``), then K6 (K6p with ``packed``)."""
     _on_cpu_nhwc(x, "elastic_transform")
-    ys, xs = plain.elastic_fields(seed, x, severity, uniform=uniform)
+    ys, xs = plain.elastic_fields(seed, x, severity, uniform=uniform, row=row)
     return elastic_warp(x, ys, xs, severity, packed)
 
 
 def _band_family(name: str, fn):
     """A band-matrix family, its input checked; draw families take their
     fields from ``uniform``."""
-    def routed(seed: int, x: torch.Tensor, severity: int = 3) -> torch.Tensor:
+    def routed(seed: int, x: torch.Tensor, severity: int = 3, row: int = 0) -> torch.Tensor:
         _on_cpu_nhwc(x, name)
-        return fn(seed, x, severity)
+        return fn(seed, x, severity, row=row)
 
     routed.__name__ = name
     return routed

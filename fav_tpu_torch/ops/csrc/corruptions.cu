@@ -16,6 +16,13 @@
 // (group lo, group hi, draw, 0) with group = element / 4; word element % 4
 // feeds the element (philox.cuh). fav_tpu_torch/ops/random.py computes the
 // same words.
+//
+// Counter base. K1-K3 and the helper take `base`, the group of the field
+// their first element is: element e draws from group base + e / 4. A shard
+// of a batch whose first image is image r passes base = r * (elements an
+// image takes) / 4 and draws exactly those rows of the whole batch's field
+// (the wrapper keeps that a whole number of groups); base 0 is the whole
+// batch, as before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,15 +72,15 @@ __device__ __forceinline__ void store_group(float* __restrict__ out, long long g
 // design keeps that so: the draws are made in registers from a counter, never
 // stored, and each thread moves one float4 per Philox pair.
 __global__ void gaussian_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
-                                uint32_t k0, uint32_t k1, float sigma, bool vec) {
+                                long long base, uint32_t k0, uint32_t k1, float sigma, bool vec) {
   const long long groups = (n + 3) / 4;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups;
        g += stride) {
     float v[4];
     const int m = load_group(x, n, g, vec, v);
-    const uint4 w1 = draw_words(g, 0u, k0, k1);
-    const uint4 w2 = draw_words(g, 1u, k0, k1);
+    const uint4 w1 = draw_words(base + g, 0u, k0, k1);
+    const uint4 w2 = draw_words(base + g, 1u, k0, k1);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float u1 = bits_to_uniform(word(w1, j));
@@ -91,14 +98,14 @@ __global__ void gaussian_kernel(const float* __restrict__ x, float* __restrict__
 // Bound: bytes (about 30 operations per element: a quarter Philox call and
 // two compares). Same streaming design as K1, one Philox call per float4.
 __global__ void impulse_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
-                               uint32_t k0, uint32_t k1, float salt, float pepper, bool vec) {
+                               long long base, uint32_t k0, uint32_t k1, float salt, float pepper, bool vec) {
   const long long groups = (n + 3) / 4;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups;
        g += stride) {
     float v[4];
     const int m = load_group(x, n, g, vec, v);
-    const uint4 w = draw_words(g, 0u, k0, k1);
+    const uint4 w = draw_words(base + g, 0u, k0, k1);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float u = bits_to_uniform(word(w, j));
@@ -162,7 +169,7 @@ __host__ __device__ constexpr int shot_table_floats(int k_max) {
 constexpr int kShotWarpFloats = 3 * kShotChunk;
 
 __global__ void __launch_bounds__(kShotWarps * 32)
-    shot_kernel(const float* __restrict__ x, float* __restrict__ out, long long n, uint32_t k0,
+    shot_kernel(const float* __restrict__ x, float* __restrict__ out, long long n, long long base, uint32_t k0,
                 uint32_t k1, float c, int k_max, const float* __restrict__ log_k, bool vec) {
   extern __shared__ __align__(16) float shot_smem[];
   float* table = shot_smem;  // log(k + 1), k + 1 < k_max; -inf beyond
@@ -187,7 +194,7 @@ __global__ void __launch_bounds__(kShotWarps * 32)
     for (int q = lane; 4 * q < m; q += 32) {
       float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       load_group(x, n, g0 + q, vec, v);
-      const uint4 wd = draw_words(g0 + q, 0u, k0, k1);
+      const uint4 wd = draw_words(base + g0 + q, 0u, k0, k1);
       float u[4], lam[4], log_lam[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -417,13 +424,13 @@ __global__ void __launch_bounds__(1024)
 // torch ops of elastic, snow, fog, frost and motion blur take their fields
 // from here on the card. Bound: bytes (4 written per element, about 29
 // operations each). One Philox call per thread, one float4 store.
-__global__ void philox_uniform_kernel(float* __restrict__ out, long long n, uint32_t draw,
+__global__ void philox_uniform_kernel(float* __restrict__ out, long long n, long long base, uint32_t draw,
                                       uint32_t k0, uint32_t k1, bool vec) {
   const long long groups = (n + 3) / 4;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups;
        g += stride) {
-    const uint4 w = draw_words(g, draw, k0, k1);
+    const uint4 w = draw_words(base + g, draw, k0, k1);
     float v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) v[j] = bits_to_uniform(word(w, j));
@@ -452,19 +459,23 @@ const char* fav_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int fav_gaussian_noise(const float* x, float* out, long long n, uint32_t seed_lo,
+// `base` (every launcher of a drawing kernel below): the counter base, in
+// groups of four elements; negative returns cudaErrorInvalidValue.
+int fav_gaussian_noise(const float* x, float* out, long long n, long long base, uint32_t seed_lo,
                        uint32_t seed_hi, float sigma, void* stream) {
   if (n <= 0) return 0;
+  if (base < 0) return static_cast<int>(cudaErrorInvalidValue);
   gaussian_kernel<<<elementwise_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, n, seed_lo, seed_hi, sigma, aligned16(x, out));
+      x, out, n, base, seed_lo, seed_hi, sigma, aligned16(x, out));
   return static_cast<int>(cudaGetLastError());
 }
 
-int fav_impulse_noise(const float* x, float* out, long long n, uint32_t seed_lo, uint32_t seed_hi,
+int fav_impulse_noise(const float* x, float* out, long long n, long long base, uint32_t seed_lo, uint32_t seed_hi,
                       float salt, float pepper, void* stream) {
   if (n <= 0) return 0;
+  if (base < 0) return static_cast<int>(cudaErrorInvalidValue);
   impulse_kernel<<<elementwise_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, n, seed_lo, seed_hi, salt, pepper, aligned16(x, out));
+      x, out, n, base, seed_lo, seed_hi, salt, pepper, aligned16(x, out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -473,9 +484,10 @@ int fav_impulse_noise(const float* x, float* out, long long n, uint32_t seed_lo,
 // warp in shared memory; above 48 KB the launcher opts the kernel in. Too
 // few blocks for n, or shared memory past the 227 KB a Hopper block can
 // have, returns cudaErrorInvalidValue.
-int fav_shot_noise(const float* x, float* out, long long n, uint32_t seed_lo, uint32_t seed_hi,
+int fav_shot_noise(const float* x, float* out, long long n, long long base, uint32_t seed_lo, uint32_t seed_hi,
                    float c, int k_max, const float* log_k, int blocks, void* stream) {
   if (n <= 0) return 0;
+  if (base < 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = 4LL * (shot_table_floats(k_max) + kShotWarps * kShotWarpFloats);
   const long long chunks = (n + kShotChunk - 1) / kShotChunk;
   if (k_max < 1 || static_cast<long long>(blocks) * kShotWarps < chunks || smem > kOptInLimit)
@@ -484,7 +496,7 @@ int fav_shot_noise(const float* x, float* out, long long n, uint32_t seed_lo, ui
                                                static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   shot_kernel<<<blocks, kShotWarps * 32, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-      x, out, n, seed_lo, seed_hi, c, k_max, log_k, aligned16(x, out));
+      x, out, n, base, seed_lo, seed_hi, c, k_max, log_k, aligned16(x, out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -521,11 +533,12 @@ int fav_corrupt_normalize(const float* x, float* out, int batch, int d, int thre
   return static_cast<int>(cudaGetLastError());
 }
 
-int fav_philox_uniform(float* out, long long n, uint32_t draw, uint32_t seed_lo, uint32_t seed_hi,
+int fav_philox_uniform(float* out, long long n, long long base, uint32_t draw, uint32_t seed_lo, uint32_t seed_hi,
                        void* stream) {
   if (n <= 0) return 0;
+  if (base < 0) return static_cast<int>(cudaErrorInvalidValue);
   philox_uniform_kernel<<<elementwise_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, n, draw, seed_lo, seed_hi, aligned16(out, out));
+      out, n, base, draw, seed_lo, seed_hi, aligned16(out, out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,6 +13,14 @@ Stream layout. A seed ``s`` (``0 <= s < 2**64``) is the key
 with ``g = e // 4``: one Philox call feeds four neighbouring elements, which
 is what a CUDA thread holding one float4 computes.
 
+Counter offset. A draw may start at flat element ``offset`` of a larger
+field: element ``e`` of the draw is then element ``offset + e`` of the
+field, its group ``(offset + e) // 4``. A shard of a batch whose first
+image has absolute index ``r`` draws with ``offset = r * (elements an image
+takes)`` and gets exactly the rows ``r ..`` of the whole batch's draw. The
+offset is a multiple of 4, so that a shard's groups are whole groups of the
+field (the kernels keep one Philox call per float4).
+
 uint32 arithmetic is emulated in int64 tensors; the 32x32 -> 64-bit product
 that Philox needs is split into 16-bit halves so no intermediate leaves
 int64's range.
@@ -22,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["philox4x32", "seed_key", "random_words", "uniform01", "bits_to_uniform"]
+__all__ = ["philox4x32", "seed_key", "counter_offset", "random_words", "uniform01", "bits_to_uniform", "fold_in"]
 
 PHILOX_M0 = 0xD2511F53
 PHILOX_M1 = 0xCD9E8D57
@@ -67,11 +75,24 @@ def seed_key(seed: int) -> tuple[int, int]:
     return seed & _MASK32, seed >> 32
 
 
-def random_words(seed: int, n: int, draw: int = 0, device=None) -> torch.Tensor:
+def counter_offset(row: int, per_row: int) -> int:
+    """The counter offset of a draw whose first image has absolute index
+    ``row`` in its batch, an image taking ``per_row`` elements of the draw;
+    raises unless it is a non-negative multiple of 4."""
+    offset = int(row) * int(per_row)
+    if offset < 0 or offset % 4:
+        raise ValueError(f"counter offset {offset} (row {row} x {per_row} elements) is not a non-negative "
+                         f"multiple of 4")
+    return offset
+
+
+def random_words(seed: int, n: int, draw: int = 0, device=None, offset: int = 0) -> torch.Tensor:
     """The ``n`` uint32 words (as int64) of draw ``draw`` for a flat tensor
-    of ``n`` elements, in the stream layout of the module docstring."""
+    of ``n`` elements starting at element ``offset`` of the field, in the
+    stream layout of the module docstring."""
+    offset = counter_offset(offset, 1)
     groups = (n + 3) // 4
-    g = torch.arange(groups, dtype=torch.int64, device=device)
+    g = torch.arange(groups, dtype=torch.int64, device=device) + offset // 4
     const = torch.full_like(g, int(draw) & _MASK32)
     words = philox4x32((g & _MASK32, g >> 32, const, torch.zeros_like(g)), seed_key(seed))
     return torch.stack(words, dim=1).reshape(-1)[:n]
@@ -86,6 +107,15 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return top24 * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
 
 
-def uniform01(seed: int, n: int, draw: int = 0, device=None) -> torch.Tensor:
-    """``n`` float32 uniforms in (0, 1] of draw ``draw`` under ``seed``."""
-    return bits_to_uniform(random_words(seed, n, draw, device))
+def uniform01(seed: int, n: int, draw: int = 0, device=None, offset: int = 0) -> torch.Tensor:
+    """``n`` float32 uniforms in (0, 1] of draw ``draw`` under ``seed``,
+    from element ``offset`` of the field on."""
+    return bits_to_uniform(random_words(seed, n, draw, device, offset))
+
+
+def fold_in(seed: int, index: int) -> int:
+    """A 64-bit seed derived from ``seed`` and ``index``: words 0 and 1 of
+    Philox draw ``index`` under ``seed`` (the counterpart of
+    ``jax.random.fold_in``; it cannot be replayed bit for bit)."""
+    lo, hi = (int(w) for w in random_words(seed, 2, draw=index))
+    return lo | (hi << 32)

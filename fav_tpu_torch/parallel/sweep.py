@@ -1,6 +1,5 @@
-"""The 15 corruptions x 5 severities evaluation grid on one device
-(``fav_tpu/parallel/sweep.py``; ``sharded_sweep`` is ROADMAP.md Queue 1
-item 10).
+"""The 15 corruptions x 5 severities evaluation grid, on one device or
+sharded over a mesh's batch axes (``fav_tpu/parallel/sweep.py``).
 
 Every (corruption, severity) cell corrupts the same images, runs the
 model and scores failure detection. The device keeps the corruption, the
@@ -19,15 +18,24 @@ The families come from ``ops.corruptions_cuda.grid_corruption_fn`` (the
 kernels K1-K4 and K6, the band-matrix families, the Philox helper, and
 glass as the oracle's 2-D resample); ``plain=True`` takes the plain
 versions of ``ops/corruptions.py`` and of the L1 statistics instead.
+
+Sharded grid (:func:`sharded_sweep`). Each rank of the mesh's batch axes
+corrupts, scores and analyses its rows, its draws started at its first
+row's absolute index (``row`` of the families), so its rows are those of
+the whole batch's grid; the per-sample rows of a chunk are gathered over
+the batch axes in one collective, and every rank finishes the same metrics
+from the whole batch.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from fav_tpu_torch.config import AnalyzerParams
@@ -43,8 +51,9 @@ from fav_tpu_torch.models.uncertainty import anomaly_from_confidence, energy_sco
 from fav_tpu_torch.ops import corruptions as plain_ops
 from fav_tpu_torch.ops import corruptions_cuda
 from fav_tpu_torch.ops.corruptions import CORRUPTION_NAMES
-from fav_tpu_torch.ops.random import random_words
+from fav_tpu_torch.ops.random import fold_in as _fold_in
 from fav_tpu_torch.ops.signal import analyze_frame, init_analyzer_carry
+from fav_tpu_torch.parallel.mesh import Mesh, all_gather_rows, data_sharding
 
 __all__ = [
     "GRID_SEED",
@@ -53,6 +62,7 @@ __all__ = [
     "corruption_sweep",
     "fused_sweep",
     "l1_rows",
+    "sharded_sweep",
     "sweep_cell",
 ]
 
@@ -71,11 +81,6 @@ def cell_key(seed: int, name: str, severity: int, corruptions: Sequence[str] = C
     ``fold_in(key, index)``). Every sweep path takes its seeds from here."""
     idx = list(corruptions).index(name) * len(severities) + list(severities).index(severity)
     return _fold_in(seed, idx)
-
-
-def _fold_in(seed: int, index: int) -> int:
-    lo, hi = (int(w) for w in random_words(seed, 2, draw=index))
-    return lo | (hi << 32)
 
 
 def l1_rows(corrupted: torch.Tensor, plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
@@ -136,12 +141,23 @@ def _route(plain: bool, corruption_fn=None):
 
 @torch.no_grad()
 def sweep_cell(name: str, forward: Callable, images: torch.Tensor, labels: torch.Tensor, seed: int,
-               severity: int, temperature: float = 1.0) -> dict[str, torch.Tensor]:
+               severity: int, temperature: float = 1.0,
+               _shard: tuple[int, Callable] | None = None) -> dict[str, torch.Tensor]:
     """One cell: corrupt, forward, score; metrics as 0-dim tensors on the
-    images' device (``sweep_cell``, :144)."""
-    corrupted = corruptions_cuda.grid_corruption_fn(name)(seed, images, severity)
+    images' device (``sweep_cell``, :144). With ``_shard`` (``(row,
+    gather)``, :func:`corruption_sweep`'s) the images and labels are rows
+    ``row ..`` of the batch, and the logits, extra rows, L1 rows and labels
+    are gathered whole before the metrics."""
+    row, gather = _shard or (0, None)
+    corrupted = _corrupt(corruptions_cuda.grid_corruption_fn, name, seed, images, severity, row)
     logits, extra = _split_output(forward(corrupted))
-    return _cell_metrics(logits, labels, temperature, extra, l1_rows(corrupted))
+    l1 = l1_rows(corrupted)
+    if gather is not None:
+        logits = gather(logits, 1 if logits.ndim == 3 else 0)  # stacked member logits [M, b, C]
+        labels = gather(labels)
+        extra = None if extra is None else {k: gather(v) for k, v in extra.items()}
+        l1 = tuple(gather(v) for v in l1)
+    return _cell_metrics(logits, labels, temperature, extra, l1)
 
 
 def _cell_metrics(logits, labels, temperature, extra=None, l1=None) -> dict[str, torch.Tensor]:
@@ -226,54 +242,67 @@ class _Stages:
         self.marks = []
 
 
-def _rows_to_host(stacked: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+def _rows_to_host(stacked: dict[str, torch.Tensor], gather=None) -> dict[str, np.ndarray]:
     """Every row of a chunk in ONE device-to-host copy: the rows go out as
     one flat float32 buffer (the int32 statuses, 0..3, are exact there) and
-    are split and cast back on the host."""
+    are split and cast back on the host. ``gather`` maps the flat buffer
+    [1, F] to the batch shards' buffers [S, F], shard-major; each row
+    [cells, b, ...] then comes back whole, [cells, S b, ...]."""
     names = list(stacked)
-    flat = torch.cat([stacked[m].to(torch.float32).reshape(-1) for m in names])
-    host = flat.cpu().numpy()
+    flat = torch.cat([stacked[m].to(torch.float32).reshape(-1) for m in names])[None]
+    host = (flat if gather is None else gather(flat)).cpu().numpy()
     out, start = {}, 0
     for m in names:
         v = stacked[m]
         n = v.numel()
         dtype = np.int32 if v.dtype == torch.int32 else np.float32
-        out[m] = host[start:start + n].reshape(tuple(v.shape)).astype(dtype)
+        shards = host[:, start:start + n].reshape(host.shape[0], *v.shape)
+        out[m] = np.concatenate(list(shards), axis=1).astype(dtype)
         start += n
     return out
 
 
 @torch.no_grad()
 def _fused_grid(cells, forward, images, labels, seed, temperature, base, want_probs=False,
-                plain: bool = False, stages: _Stages | None = None, corruption_fn=None) -> dict[str, np.ndarray]:
+                plain: bool = False, stages: _Stages | None = None, corruption_fn=None, row: int = 0,
+                gather=None) -> dict[str, np.ndarray]:
     """A chunk of cells: per-sample rows [cells, B] (conf, correct, fail,
     entropy, brier, anomaly, energy, the L1 status and anomaly, and ``mi``,
     ``agree``, ``x_<name>`` and ``probs`` as the forward and ``want_probs``
     give them), on the host after one copy. Cell i of the chunk takes the
-    seed of absolute index ``base + i`` (``_fused_grid``, :234)."""
+    seed of absolute index ``base + i`` (``_fused_grid``, :234). A shard
+    passes its first row's index ``row`` and the ``gather`` of
+    :func:`_rows_to_host`."""
     return _grid_chunk(cells, forward, None, images, labels, seed, temperature, None, base, want_probs,
-                       _route(plain, corruption_fn), plain, stages)
+                       _route(plain, corruption_fn), plain, stages, row, gather)
 
 
 @torch.no_grad()
 def _fused_grid_monitored(cells, forward, mon_forward, images, labels, seed, temperature, mon_temperature,
                           base, plain: bool = False, stages: _Stages | None = None,
-                          corruption_fn=None) -> dict[str, np.ndarray]:
+                          corruption_fn=None, row: int = 0, gather=None) -> dict[str, np.ndarray]:
     """:func:`_fused_grid` with a monitor: the predictor's rows plus
     ``mon_conf``, the monitor's confidence on the same corrupted batch
     (``_fused_grid_monitored``, :293)."""
     return _grid_chunk(cells, forward, mon_forward, images, labels, seed, temperature, mon_temperature, base,
-                       False, _route(plain, corruption_fn), plain, stages)
+                       False, _route(plain, corruption_fn), plain, stages, row, gather)
+
+
+def _corrupt(route, name: str, seed: int, images: torch.Tensor, sev: int, row: int) -> torch.Tensor:
+    """A cell's corruption of ``images``, rows ``row ..`` of their batch (an
+    injected router need not take ``row`` on a whole batch)."""
+    fn = route(name)
+    return fn(seed, images, sev, row=row) if row else fn(seed, images, sev)
 
 
 def _grid_chunk(cells, forward, mon_forward, images, labels, seed, temperature, mon_temperature, base,
-                want_probs, route, plain, stages):
+                want_probs, route, plain, stages, row=0, gather=None):
     stages = stages or _Stages(None, images.device)
     stacked: dict[str, list] = {}
     num_classes = None
     for i, (name, sev) in enumerate(cells):
         stages.mark("corrupt")
-        corrupted = route(name)(_fold_in(seed, base + i), images, sev)
+        corrupted = _corrupt(route, name, _fold_in(seed, base + i), images, sev, row)
         stages.mark("forward")
         raw, extra = _split_output(forward(corrupted))
         logits, mi, agree = _reduce_members(raw, temperature)
@@ -308,7 +337,7 @@ def _grid_chunk(cells, forward, mon_forward, images, labels, seed, temperature, 
         for m, v in per_sample.items():
             stacked.setdefault(m, []).append(v)
     stages.mark("rows")
-    host = _rows_to_host({m: torch.stack(vs) for m, vs in stacked.items()})
+    host = _rows_to_host({m: torch.stack(vs) for m, vs in stacked.items()}, gather)
     stages.mark(None)
     stages.flush()
     return host
@@ -472,6 +501,7 @@ def fused_sweep(
     plain: bool = False,
     timings: dict | None = None,
     corruption_fn: Callable[[str], Callable] | None = None,
+    _shard: tuple[int, Callable] | None = None,
 ) -> Any:
     """The grid in chunks of ``cells_per_call`` cells (0: all in one), one
     device-to-host copy of rows per chunk, metrics finished on the host
@@ -493,7 +523,10 @@ def fused_sweep(
       ``forward``, ``l1``, ``rows`` (the copy) and ``host`` (finalising).
 
     Chunking never changes a result: each cell's seed folds in its absolute
-    index."""
+    index. ``_shard`` (:func:`sharded_sweep`'s) is ``(row, gather)``: the
+    images are rows ``row ..`` of the batch and ``gather`` makes each
+    chunk's rows whole."""
+    row, gather = _shard or (0, None)
     if monitor is not None and return_probs:
         raise ValueError("monitor and return_probs are mutually exclusive")
     if return_rows and return_probs:
@@ -507,10 +540,10 @@ def fused_sweep(
         if monitor is not None:
             mon_forward, mon_temperature = monitor
             out = _fused_grid_monitored(chunk, forward, mon_forward, images, labels, seed, temperature,
-                                        mon_temperature, start, plain, stages, corruption_fn)
+                                        mon_temperature, start, plain, stages, corruption_fn, row, gather)
         else:
             out = _fused_grid(chunk, forward, images, labels, seed, temperature, start, return_probs, plain,
-                              stages, corruption_fn)
+                              stages, corruption_fn, row, gather)
         for m, v in out.items():
             host.setdefault(m, []).extend(v)
     t = time.perf_counter()
@@ -538,12 +571,85 @@ def corruption_sweep(
     corruptions: Sequence[str] = CORRUPTION_NAMES,
     severities: Sequence[int] = SEVERITIES,
     temperature: float = 1.0,
+    _shard: tuple[int, Callable] | None = None,
 ) -> dict[str, dict[int, dict[str, float]]]:
     """The grid cell by cell (``corruption_sweep``, :601): each cell's
     metrics finished on the device by ``sweep_cell`` and fetched as floats.
-    The seeds are :func:`fused_sweep`'s, so both paths corrupt alike."""
+    The seeds are :func:`fused_sweep`'s, so both paths corrupt alike.
+    ``_shard`` (:func:`sharded_sweep`'s) is ``(row, gather)``: the images
+    and labels are rows ``row ..`` of the batch, and ``gather(t, dim=0)``
+    makes a cell's rows whole."""
     results: dict[str, dict[int, dict[str, float]]] = {}
     for i, (name, sev) in enumerate((n, s) for n in corruptions for s in severities):
-        cell = sweep_cell(name, forward, images, labels, _fold_in(seed, i), sev, temperature)
+        cell = sweep_cell(name, forward, images, labels, _fold_in(seed, i), sev, temperature, _shard)
         results.setdefault(name, {})[sev] = {m: float(v) for m, v in cell.items()}
     return results
+
+
+def _fingerprint(tensors) -> str:
+    """A digest of tensors' bytes, shapes and dtypes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous().cpu()
+        h.update(f"{tuple(t.shape)}{t.dtype}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _check_replicated(tensors) -> None:
+    """Raises unless every rank of the world holds the same ``tensors``."""
+    digest = _fingerprint(tensors)
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, digest)
+    differ = [r for r, d in enumerate(everyone) if d != digest]
+    if differ:
+        raise ValueError(f"sharded_sweep: ranks {differ} hold other parameters or images than rank "
+                         f"{dist.get_rank()}; the grid needs them replicated")
+
+
+@torch.no_grad()
+def sharded_sweep(
+    mesh: Mesh,
+    forward: Callable,
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    seed: int = GRID_SEED,
+    corruptions: Sequence[str] = CORRUPTION_NAMES,
+    severities: Sequence[int] = SEVERITIES,
+    temperature: float = 1.0,
+    fused: bool = False,
+    cells_per_call: int = 0,
+    return_probs: bool = False,
+    monitor: tuple | None = None,
+    return_rows: Sequence[str] = (),
+    params: Sequence[torch.Tensor] = (),
+    timings: dict | None = None,
+) -> Any:
+    """The grid with the batch sharded over the mesh's batch axes (``data``,
+    or ``("dcn", "data")`` on a multi-slice mesh) and the model replicated
+    (``sharded_sweep``, :627). Every rank passes the whole batch and the
+    same ``forward``; ``params`` (the tensors of the forward's modules, and
+    the monitor's) are checked on entry to be the same on every rank, with
+    the images and labels. Each rank runs its rows; every rank returns the
+    same results, those of :func:`fused_sweep` (``fused=True``, with its
+    ``cells_per_call``, ``return_probs``, ``monitor`` and ``return_rows``)
+    or :func:`corruption_sweep` on the whole batch: their per-sample rows
+    bit for bit where the forward and the band products compute an image
+    alone in the same arithmetic at any batch size, as on the CPU; on a
+    card cuDNN and cuBLAS pick their algorithms by the shape, so a shard's
+    rows may differ from the whole batch's in the last bits."""
+    if not fused and monitor is not None:
+        raise ValueError("monitor requires the fused sweep path")
+    if not fused and return_rows:
+        raise ValueError("return_rows requires the fused sweep path")
+    _check_replicated([*params, images, labels])
+    rows = data_sharding(mesh, images.shape[0])
+    local_x, local_y = images[rows].contiguous(), labels[rows].contiguous()
+    def gather(t, dim=0):
+        return all_gather_rows(t, mesh, mesh.batch_axes, dim=dim)
+
+    shard = (rows.start, gather)
+    if fused:
+        return fused_sweep(forward, local_x, local_y, seed, corruptions, severities, temperature, cells_per_call,
+                           return_probs, monitor, return_rows, timings=timings, _shard=shard)
+    return corruption_sweep(forward, local_x, local_y, seed, corruptions, severities, temperature, _shard=shard)

@@ -118,7 +118,7 @@ def test_vision_simulator_equal():
 
 
 @pytest.mark.parametrize("section", ["TrustParams", "AnalyzerParams", "AnomalySimParams", "VideoParams",
-                                     "ModelParams", "ServerParams"])
+                                     "ModelParams", "MeshParams", "ServerParams"])
 def test_config_sections_equal(section):
     assert dataclasses.asdict(getattr(tcfg, section)()) == dataclasses.asdict(getattr(jcfg, section)())
 
@@ -131,7 +131,7 @@ def test_config_codes_names_and_tree():
         assert tcfg.policy_name(code) == jcfg.policy_name(code)
         assert tcfg.status_code(jcfg.STATUS_NAMES[code]) == code
     ours = {f.name for f in dataclasses.fields(tcfg.FrameworkConfig)}
-    assert ours == {f.name for f in dataclasses.fields(jcfg.FrameworkConfig)} - {"mesh"}  # Queue 1 item 10
+    assert ours == {f.name for f in dataclasses.fields(jcfg.FrameworkConfig)}
     assert tcfg.DEFAULT_CONFIG == tcfg.FrameworkConfig()
 
 

@@ -172,6 +172,24 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         resolve_device("meta")
 
 
+def test_parallel_modules_import_alone_and_init_world_needs_a_card():
+    """``parallel/dist.py``, ``mesh.py`` and ``dryrun.py`` import in a fresh
+    interpreter without JAX (the walk above imports them with the rest);
+    ``init_world`` with no card and no CPU asked for raises and joins no
+    world: it never falls back from NCCL to gloo."""
+    code = _IMPORT_ALL.split("import fav_tpu_torch\n")[0] + (
+        "import torch.distributed as dist\n"
+        "from fav_tpu_torch.parallel import dist as pd, dryrun, mesh\n"
+        "try:\n    pd.init_world(init_method='file:///nonexistent/store')\nexcept RuntimeError as e:\n"
+        "    assert \"device='cpu'\" in str(e), e\nelse:\n    raise SystemExit('init_world did not raise')\n"
+        "assert not dist.is_initialized() and pd.current_world() is None\n"
+        "assert not [m for m in sys.modules if blocked(m)]\nprint('ok')\n")
+    _no_card()
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.split() == ["ok"], out.stderr
+
+
 def test_build_needs_nvcc(monkeypatch, tmp_path):
     from fav_tpu_torch.ops import _build
 

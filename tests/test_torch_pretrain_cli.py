@@ -2,7 +2,8 @@
 the CPU: every mode writes weights ``load_weights`` reads back, with the
 JAX package's metadata keys for that mode (``fav_tpu/models/
 pretrain.py`` plus ``format``); every ``parser.error`` of :441-483 fires
-with its text; ``--shard`` raises naming ROADMAP.md Queue 1 item 10;
+with its text; ``--shard`` in a process that joined no world trains
+unsharded;
 DeepAugment needs the autoencoder's weights; ``evaluate`` trains a ViT
 for its grid; the AugMix draws carry each option.
 
@@ -18,6 +19,7 @@ import json
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,7 +34,7 @@ from fav_tpu_torch.models import pretrain  # noqa: E402
 from fav_tpu_torch.models.cnn import ConvAutoencoder  # noqa: E402
 from fav_tpu_torch.ops import augment as ta  # noqa: E402
 from fav_tpu_torch.ops import deepaugment as tda  # noqa: E402
-from fav_tpu_torch.utils.checkpoint import load_weights  # noqa: E402
+from fav_tpu_torch.utils.checkpoint import load_flax_npz, load_weights  # noqa: E402
 
 
 # ── the CLI ──────────────────────────────────────────────────────────────
@@ -131,9 +133,18 @@ def test_pretrain_parser_errors_fire(case, capsys):
     assert exc.value.code == 2 and text in capsys.readouterr().err
 
 
-def test_pretrain_shard_raises_naming_queue_item_10():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        pretrain.main(["--ensemble", "2", "--shard", "--device", "cpu"], dataset=object())
+def test_pretrain_shard_raises_naming_queue_item_10(cli_data, tmp_path):
+    """``--shard`` is ported (``tests/test_torch_parallel_train.py`` runs it
+    on two ranks): it no longer raises, and in a process that joined no
+    world it trains unsharded, as ``fav_tpu`` does on one device, so its
+    weights are the run's without it."""
+    base = ["--ensemble", "2", "--steps", "2", "--batch", "8", "--widths", "8,16", "--device", "cpu",
+            "--log-every", "0"]
+    sharded = pretrain.main(base + ["--shard", "--out", str(tmp_path / "s")], dataset=cli_data)
+    plain = pretrain.main(base + ["--out", str(tmp_path / "p")], dataset=cli_data)
+    assert sharded == plain
+    got, want = load_flax_npz(tmp_path / "s.npz"), load_flax_npz(tmp_path / "p.npz")
+    assert sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want)
 
 
 def test_deepaugment_needs_the_autoencoder_weights(tmp_path):

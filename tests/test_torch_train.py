@@ -529,5 +529,7 @@ def test_pretrain_cli_writes_weights_load_student_reads(tmp_path, monkeypatch):
     assert meta["widths"] == [8, 16] and meta["dense_width"] == 16 and meta["train_steps"] == 3
     model, stored = load_student("clf", device="cpu", directory=tmp_path)
     assert stored == meta and model.widths == (8, 16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pretrain.main(["--ensemble", "3", "--shard", "--device", "cpu"])
+    # --shard in a process that joined no world trains the ensemble unsharded
+    meta = pretrain.main(["--ensemble", "3", "--shard", "--steps", "1", "--batch", "8", "--widths", "8,16",
+                          "--log-every", "0", "--device", "cpu", "--out", str(tmp_path / "ens")])
+    assert meta["ensemble_size"] == 3

@@ -699,13 +699,13 @@ def test_train_megastep_is_the_per_step_trajectory(objective):
 def test_ensemble_megastep_is_the_per_step_trajectory(mode):
     ds = _small_dataset()
     kw = dict(augmix=mode != "plain", js_lam=JS_LAM, augmix_mode="js" if mode == "plain" else mode)
-    a, gen = [_fresh_state(i) for i in range(MEMBERS)], torch.Generator().manual_seed(2)
-    for idx in CHUNK:
+    a, seeds = [_fresh_state(i) for i in range(MEMBERS)], [tt.step_seed(2, i) for i in range(len(CHUNK))]
+    for idx, seed in zip(CHUNK, seeds):
         last = tt.ensemble_train_step(a, torch.from_numpy(ds.train_images[idx]),
-                                      torch.from_numpy(ds.train_labels[idx]), gen, **kw)
+                                      torch.from_numpy(ds.train_labels[idx]), seed, **kw)
     mega = tt.make_ensemble_megastep(device="cpu", **kw)
     b, metrics = mega([_fresh_state(i) for i in range(MEMBERS)], torch.from_numpy(ds.train_images),
-                      torch.from_numpy(ds.train_labels), CHUNK, torch.Generator().manual_seed(2))
+                      torch.from_numpy(ds.train_labels), CHUNK, seeds)
     assert metrics["loss"].shape == (3, MEMBERS) and all(torch.equal(last[k], metrics[k][-1]) for k in last)
     assert all(s.step == 3 and _same_params(s.model, t.model) for s, t in zip(a, b))
 
