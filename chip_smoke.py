@@ -30,6 +30,8 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                K1-K6 and the Philox helper against its plain version on the
                card, with its time, the plain version's time, its bound and,
                for K6, the time of ``grid_sample`` computing the same warp,
+               K1 also at (7, 33, 31, 3), on a 16-byte base and on a base
+               off 16 bytes (the tail and element-by-element loops),
                for K2 of ``torch.poisson`` (the draw only) and for the
                helper of ``torch.rand`` (each beside its output's mean); K2
                at severities 1-5 there and at (7, 33, 31, 3) on a base off
@@ -50,7 +52,10 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                chain batch (768, 32, 32, 3), m = 18 and 22, exact, beside
                ``grid_sample`` computing the same shear, in float32 and in
                bfloat16 (the ``--bf16-aug`` chain; also exact at (7, 33,
-               31, 3) on a base off 16 bytes); K5p and K6p (the
+               31, 3) on a base off 16 bytes, and bf16 K9a at (4, 16, 5000,
+               3), whose rows pass a block's stage and go by windows);
+               then one line for the two kernels redesigned last (K1, bf16
+               K9a): time, bound and share of the bound; K5p and K6p (the
                lane-packed glass and elastic kernels) at (6144, 32, 32, 3)
                against their plain versions and against K5 and K6, exact,
                K6p at severities 1-5, at batch 6144 and at batch 12 on a
@@ -756,6 +761,28 @@ def check_k2(x, bound) -> dict:
     return out
 
 
+def check_k1_odd(x, seed: int, severity: int) -> str:
+    """K1 within K1_TOL of its plain version at K2_ODD_SHAPE (n = 21483, not
+    a multiple of 4: whole tiles, then the rest loop and a partial group)
+    on a 16-byte base, and on a base 4 bytes off 16 (every group in the rest
+    loop, element by element)."""
+    import torch
+
+    from fav_tpu_torch.ops import corruptions as plain
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 21)
+    odd = torch.rand(K2_ODD_SHAPE, generator=gen, device=x.device)
+    errs = []
+    for t in (odd, misaligned(odd)):
+        got = kern.gaussian_noise(seed, t, severity)
+        err = float((got - plain.gaussian_noise_plain(seed, t, severity)).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= K1_TOL,
+              f"gaussian_noise at {K2_ODD_SHAPE} on a base {t.data_ptr() % 16} bytes off 16: max diff {err} > {K1_TOL}")
+        errs.append(f"{err:.3e} (base {t.data_ptr() % 16} bytes off 16)")
+    return f"at {K2_ODD_SHAPE}: {', '.join(errs)}"
+
+
 def check_k5(x, seed: int) -> None:
     """K5 exact to its plain version at every severity on ``x`` and, on a
     base 4 bytes off 16, at K2_ODD_SHAPE and at K5_ODD_BATCH images of
@@ -846,6 +873,9 @@ def check_k8(x, bound) -> dict:
 # bf16 K9a/K9b are also held exactly at an odd shape on a base off a 16-byte
 # boundary (2 bytes off: a 6-byte pixel straddles 4-byte words)
 K9_ODD_SHAPE = (7, 33, 31, 3)
+# bf16 K9a at rows longer than a block's stage (augment_cuda.ROWS_STAGE
+# values): the kernel's windows
+K9_WIDE_SHAPE = (4, 16, 5000, 3)
 
 
 def check_k9(dev, gen, bound) -> dict:
@@ -887,6 +917,21 @@ def check_k9(dev, gen, bound) -> dict:
                 check(torch.equal(wrapper(xo, do, m), plain_fn(xo, do, m)),
                       f"{name}: differs from the plain version at {K9_ODD_SHAPE} off 16 bytes")
                 odd = f", and at {K9_ODD_SHAPE} on a base {xo.data_ptr() % 16} bytes off 16"
+                if rows:
+                    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                    main = augment_cuda.shear_rows_bf16_geometry(b, h, w, c, sms)
+                    odd = (f" ({main.units} blocks of {main.rows_per_block} rows, {augment_cuda.ROWS_THREADS} "
+                           f"threads, {main.shared_bytes} B shared)" + odd)
+                    wb, wh, ww, wc = K9_WIDE_SHAPE
+                    geo = augment_cuda.shear_rows_bf16_geometry(wb, wh, ww, wc, sms)
+                    check(geo.window > 0, f"{name}: {K9_WIDE_SHAPE} should go by windows, got {geo}")
+                    mw = aug.shift_bounds(wh, ww)[0]
+                    xw = torch.rand(K9_WIDE_SHAPE, generator=gen, device=dev).to(dtype)
+                    dw = (torch.rand((wb, wh), generator=gen, device=dev) * 2 - 1) * (mw + 2)
+                    check(torch.equal(wrapper(xw, dw, mw), plain_fn(xw, dw, mw)),
+                          f"{name}: differs from the plain version at {K9_WIDE_SHAPE} (windows of {geo.window})")
+                    odd += (f", and at {K9_WIDE_SHAPE} (m={mw}) in windows of {geo.window} pixels, "
+                            f"{geo.windows_per_row} a row")
             ms = time_ms(lambda: wrapper(x, delta, m), reps=20)
             plain_ms = time_ms(lambda: plain_fn(x, delta, m), reps=3, warmup=1)
             # the same shear as sample coordinates for grid_sample
@@ -3410,6 +3455,8 @@ def main(argv: list[str]) -> int:
             tol = K1_TOL if name == "gaussian_noise" else K4_CONTRAST_TOL
             check(err <= tol, f"{name}: max diff {err} > {tol}")
             extra = f"tol {tol}"
+            if name == "gaussian_noise":
+                extra += "; " + check_k1_odd(x, seed, sev)
         ms = time_ms(lambda: wrapper(seed, x, sev), reps=20)
         plain_ms = time_ms(lambda: plain_fn(seed, x, sev), reps=3, warmup=1)
         bytes_moved = 2 * n * 4
@@ -3569,6 +3616,13 @@ def main(argv: list[str]) -> int:
     k8_report = check_k8(x, bound)
     # K9a and K9b at an AugMix view's chain batch
     k9_report = check_k9(dev, gen, bound)
+    # the kernels redesigned last and their share of the bound, on one line
+    # (the line an A/B of two commits reads)
+    redesigned = [(f"K1 gaussian_noise at {tuple(x.shape)}", report["gaussian_noise"]),
+                  (f"bf16 K9a shear_rows_bf16 at {(SHEAR_BATCH, 32, 32, 3)}", k9_report["shear_rows_bf16"])]
+    phase("kernels", "redesigned: " + "; ".join(
+        f"{label} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound" for label, r in redesigned) + f" | {smi}")
 
     # ── 4. the nano student against the JAX package's golden logits ──────
     model, meta = load_student("student_nano", device=dev)

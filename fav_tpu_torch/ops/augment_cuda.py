@@ -17,16 +17,94 @@ A wrapper checks its input and then:
 * on a CUDA tensor launches its kernel on PyTorch's current stream, raises
   if the launcher reports an error, and adds one to the kernel's launch
   count. There is no fallback.
+
+bf16 K9a has a kernel of its own (``shear_rows_bf16_kernel`` in
+``csrc/shear.cu``): a block stages whole rows, or a window of a long row,
+in shared memory and writes 16 bytes a thread. Its units and shared bytes
+come from ``shear_rows_bf16_geometry``, which raises for a shape the kernel
+cannot take.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from fav_tpu_torch.ops import augment as plain
-from fav_tpu_torch.ops.corruptions_cuda import KERNELS
+from fav_tpu_torch.ops.corruptions_cuda import KERNELS, SHARED_MEMORY_LIMIT, multiprocessors
 
-__all__ = ["shear_rows", "shear_cols"]
+__all__ = ["ROWS_THREADS", "ROWS_STAGE", "ROWS_MAX", "ROWS_BLOCKS_PER_SM", "ROWS_STEP", "RowsGeometry",
+           "shear_rows_bf16_geometry", "shear_rows", "shear_cols"]
+
+# bf16 K9a's block (kRowsThreads, kRowsStage, kRowsMax in csrc/shear.cu):
+# threads, bf16 values a stage holds, rows a block takes at most.
+ROWS_THREADS = 256
+ROWS_STAGE = 8192
+ROWS_MAX = 512
+# Whole rows are spread over about this many blocks an SM, one wave, in
+# blocks of a multiple of ROWS_STEP rows: each block pays a copy in, a
+# barrier and a write out at full latency, so fewer and fuller blocks run
+# faster. On an H100 at (768, 32, 32, 3), blocks of 32 to 64 rows beat 24
+# (8 blocks an SM), and 48 rows beat 47 and 56.
+ROWS_BLOCKS_PER_SM = 4
+ROWS_STEP = 16
+# A stage holds a span and its 16-byte phase: up to 7 values before it.
+_PHASE = 7
+_MAX_UNITS = 2**31 - 1
+
+
+class RowsGeometry(NamedTuple):
+    """bf16 K9a's launch: ``units`` blocks of ``ROWS_THREADS`` threads,
+    each taking ``rows_per_block`` whole rows (``window`` 0) or one window
+    of ``window`` output pixels of a row (``windows_per_row`` a row), with
+    ``in_stage`` and ``out_stage`` bf16 values of staging and
+    ``shared_bytes`` in all (the launcher derives the same)."""
+    rows_per_block: int
+    window: int
+    windows_per_row: int
+    units: int
+    in_stage: int
+    out_stage: int
+    shared_bytes: int
+
+
+def _stage(values: int) -> int:
+    return (values + _PHASE + 7) // 8 * 8
+
+
+def shear_rows_bf16_geometry(b: int, h: int, w: int, c: int, sms: int) -> RowsGeometry:
+    """bf16 K9a's units for (B, H, W, C) on a card of ``sms`` SMs. Rows of
+    W C values that fit a stage go whole, as many a block as spread the B H
+    rows over one wave of ``ROWS_BLOCKS_PER_SM`` blocks an SM, rounded up to
+    a multiple of ``ROWS_STEP`` (at most what a stage and ``ROWS_MAX``
+    allow, so a larger batch takes more waves); a longer row goes by
+    windows whose sources, one pixel more than the window, fit a stage.
+    Raises where a pixel does not fit a stage or the units pass the grid's
+    limit."""
+    if min(b, h, w, c) < 1:
+        raise ValueError(f"shear_rows: empty shape {(b, h, w, c)}")
+    rows, row_len = b * h, w * c
+    if row_len + _PHASE <= ROWS_STAGE:
+        fit = min(ROWS_MAX, (ROWS_STAGE - _PHASE) // row_len)
+        spread = -(-rows // (sms * ROWS_BLOCKS_PER_SM))
+        per = max(1, min(fit, -(-spread // ROWS_STEP) * ROWS_STEP))
+        window, windows, units = 0, 1, -(-rows // per)
+        in_values = out_values = per * row_len
+    else:
+        per, window = 1, (ROWS_STAGE - _PHASE) // c - 1
+        if window < 1:
+            raise ValueError(f"shear_rows: a pixel of {c} channels does not fit a stage of {ROWS_STAGE} values")
+        windows = -(-w // window)
+        units = rows * windows
+        in_values, out_values = (window + 1) * c, window * c
+    if units > _MAX_UNITS:
+        raise ValueError(f"shear_rows: {units} blocks for {(b, h, w, c)} pass the grid's {_MAX_UNITS}")
+    in_stage, out_stage = _stage(in_values), _stage(out_values)
+    shared = 16 * per + 2 * (in_stage + out_stage)
+    if shared > SHARED_MEMORY_LIMIT:
+        raise ValueError(f"shear_rows: {shared} bytes of shared memory pass {SHARED_MEMORY_LIMIT}")
+    return RowsGeometry(per, window, windows if window else 0, units, in_stage, out_stage, shared)
 
 
 def _check(name: str, x: torch.Tensor, delta: torch.Tensor, axis: int) -> bool:
@@ -50,9 +128,13 @@ def _check(name: str, x: torch.Tensor, delta: torch.Tensor, axis: int) -> bool:
 def _launch(kernel: str, x: torch.Tensor, delta: torch.Tensor, m: int) -> torch.Tensor:
     b, h, w, c = x.shape
     out = torch.empty_like(x)
+    args = [x.data_ptr(), delta.data_ptr(), out.data_ptr(), b, h, w, c, int(m)]
     if x.dtype == torch.bfloat16:
+        if kernel == "shear_rows":
+            geo = shear_rows_bf16_geometry(b, h, w, c, multiprocessors(x.device))
+            args += [geo.rows_per_block, geo.window]
         kernel += "_bf16"
-    KERNELS[kernel].launch(x.device, x.data_ptr(), delta.data_ptr(), out.data_ptr(), b, h, w, c, int(m))
+    KERNELS[kernel].launch(x.device, *args)
     return out
 
 

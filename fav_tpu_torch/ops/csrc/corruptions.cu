@@ -7,10 +7,12 @@
 // reaches the wrapper.
 //
 // Arithmetic follows the plain PyTorch versions (fav_tpu_torch/ops/
-// corruptions.py) operation by operation. Products and sums go through the
-// __f*_rn intrinsics, which nvcc never contracts into FMAs, so each rounds as
-// a separate PyTorch op does; logf/expf/cosf/sqrtf are the precise CUDA math
-// library calls that PyTorch's own CUDA ops use (no --use_fast_math).
+// corruptions.py) operation by operation, but for K1's cosine (below).
+// Products and sums go through the __f*_rn intrinsics, which nvcc never
+// contracts into FMAs, so each rounds as a separate PyTorch op does;
+// logf/expf/cosf/sqrtf are the precise CUDA math library calls that
+// PyTorch's own CUDA ops use (no --use_fast_math). K1 takes cospif(2 u) for
+// cos(2 pi u): within 1e-5 of its plain version, not exact (see K1).
 //
 // Random numbers: Philox4x32-10 keyed by the 64-bit seed, counter
 // (group lo, group hi, draw, 0) with group = element / 4; word element % 4
@@ -66,30 +68,86 @@ __device__ __forceinline__ void store_group(float* __restrict__ out, long long g
 
 // ── K1: gaussian noise ─────────────────────────────────────────────────────
 // Replaces fav_tpu/ops/corruptions_pallas.py:_gaussian_kernel (:93).
-// Bound: bytes. It reads and writes 4 bytes per element and spends about 95
-// scalar operations on it (half a Philox call, log, sqrt, cos, the clip),
-// under the H100's ratio of float32 operations to device-memory bytes. The
-// design keeps that so: the draws are made in registers from a counter, never
-// stored, and each thread moves one float4 per Philox pair.
-__global__ void gaussian_kernel(const float* __restrict__ x, float* __restrict__ out, long long n,
-                                long long base, uint32_t k0, uint32_t k1, float sigma, bool vec) {
-  const long long groups = (n + 3) / 4;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups;
-       g += stride) {
+//
+// What it computes: clip(x + sigma z), z = sqrt(-2 log u1) cos(2 pi u2), with
+// u1 and u2 draws 0 and 1 of the Philox stream, the uniforms bit-equal to
+// bits_to_uniform's. Tolerance class: within 1e-5 of the plain version
+// (gaussian_noise_plain), not exact: the cosine is cospif(2 u2) (2 u2 is
+// exact; cospif needs no Cody-Waite reduction and has no slow path), where
+// the plain version takes torch.cos(fl(2 pi) u2); the two angles differ by
+// the rounding of fl(2 pi) u2, under 5e-7 rad, so the outputs differ by
+// under 5e-7 at sigma 0.18. logf and sqrtf stay the precise calls: __logf's
+// absolute error near u1 = 1, through the square root, would pass 1e-5.
+//
+// Bound: bytes on paper (4 read and 4 written an element: 0.0451 ms at
+// (6144, 32, 32, 3) on an H100 80GB HBM3 at 700 W), but on the card its
+// instructions bound it: one float4 group a thread with cosf ran 120 SASS
+// instructions an element on its hot path (two Philox calls a group of
+// four, logf, sqrtf, cosf's reduction, the clip; tools/sass_count.py on
+// the built library); this design runs 96 in about a fifth less time, 64%
+// of the bound:
+//   * cospif(2 u2) in place of cosf(fl(2 pi) u2): no reduction, no local
+//     stack frame for cosf's large-argument path;
+//   * each thread of the main loop holds kGaussGroups float4 groups of a
+//     tile (neighbouring threads on neighbouring groups), loads them first
+//     and runs their 2 kGaussGroups Philox chains side by side, so that
+//     the chains hide each other's latency and the loads';
+//   * indices within a launch are 32-bit where the group count allows (the
+//     counter stays 64-bit: base + group).
+// The Philox round keys stay in the kernel: ptxas already makes them once a
+// trip on the uniform datapath (UIADD3), shared by the trip's calls; keys
+// passed in the constant bank instead made ptxas split each 32x32->64
+// product into two instructions and ran slower. The uniforms keep
+// bits_to_uniform's I2FP conversion, a full-rate ALU instruction on sm_90.
+// Groups past the last whole tile, and every group where x or out is not
+// 16-byte aligned, take a grid-stride loop of one group a thread, element
+// by element where a group is not whole or not aligned.
+constexpr int kGaussGroups = 2;  // float4 groups a thread holds in the main loop
+constexpr int kGaussTile = kThreads * kGaussGroups;
+
+__device__ __forceinline__ float gaussian_element(float v, uint32_t bits1, uint32_t bits2, float sigma) {
+  const float u1 = bits_to_uniform(bits1);
+  const float u2 = bits_to_uniform(bits2);
+  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
+  const float z = __fmul_rn(r, cospif(__fmul_rn(2.0f, u2)));
+  return clip01(__fadd_rn(v, __fmul_rn(sigma, z)));
+}
+
+// Index: uint32_t where every group index of the launch, and the grid-stride
+// step past the last, stays below 2**31; unsigned long long otherwise.
+template <typename Index>
+__global__ void __launch_bounds__(kThreads)
+    gaussian_kernel(const float* __restrict__ x, float* __restrict__ out, long long n, Index groups,
+                    Index tiles, unsigned long long base, uint32_t k0, uint32_t k1, float sigma, bool vec) {
+  for (Index t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const Index g0 = t * kGaussTile + threadIdx.x;
+    float4 v[kGaussGroups];
+    uint4 w1[kGaussGroups], w2[kGaussGroups];
+#pragma unroll
+    for (int j = 0; j < kGaussGroups; ++j) v[j] = reinterpret_cast<const float4*>(x)[g0 + j * kThreads];
+#pragma unroll
+    for (int j = 0; j < kGaussGroups; ++j) {
+      w1[j] = draw_words(base + g0 + j * kThreads, 0u, k0, k1);
+      w2[j] = draw_words(base + g0 + j * kThreads, 1u, k0, k1);
+    }
+#pragma unroll
+    for (int j = 0; j < kGaussGroups; ++j) {
+      const float4 o = make_float4(gaussian_element(v[j].x, w1[j].x, w2[j].x, sigma),
+                                   gaussian_element(v[j].y, w1[j].y, w2[j].y, sigma),
+                                   gaussian_element(v[j].z, w1[j].z, w2[j].z, sigma),
+                                   gaussian_element(v[j].w, w1[j].w, w2[j].w, sigma));
+      reinterpret_cast<float4*>(out)[g0 + j * kThreads] = o;
+    }
+  }
+  const Index stride = static_cast<Index>(gridDim.x) * kThreads;
+  for (Index g = tiles * kGaussTile + blockIdx.x * kThreads + threadIdx.x; g < groups; g += stride) {
     float v[4];
-    const int m = load_group(x, n, g, vec, v);
+    const int m = load_group(x, n, static_cast<long long>(g), vec, v);
     const uint4 w1 = draw_words(base + g, 0u, k0, k1);
     const uint4 w2 = draw_words(base + g, 1u, k0, k1);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float u1 = bits_to_uniform(word(w1, j));
-      const float u2 = bits_to_uniform(word(w2, j));
-      const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
-      const float z = __fmul_rn(r, cosf(__fmul_rn(6.2831854820251465f, u2)));
-      v[j] = clip01(__fadd_rn(v[j], __fmul_rn(sigma, z)));
-    }
-    store_group(out, g, vec, m, v);
+    for (int j = 0; j < 4; ++j) v[j] = gaussian_element(v[j], word(w1, j), word(w2, j), sigma);
+    store_group(out, static_cast<long long>(g), vec, m, v);
   }
 }
 
@@ -465,8 +523,24 @@ int fav_gaussian_noise(const float* x, float* out, long long n, long long base, 
                        uint32_t seed_hi, float sigma, void* stream) {
   if (n <= 0) return 0;
   if (base < 0) return static_cast<int>(cudaErrorInvalidValue);
-  gaussian_kernel<<<elementwise_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, n, base, seed_lo, seed_hi, sigma, aligned16(x, out));
+  const bool vec = aligned16(x, out);
+  const long long groups = (n + 3) / 4;
+  const long long tiles = vec ? n / 4 / kGaussTile : 0;  // tiles of whole groups only
+  const long long rest = groups - tiles * kGaussTile;
+  const long long cap = 1LL << 20;  // the grid-stride loops cover the rest
+  long long blocks = tiles > (rest + kThreads - 1) / kThreads ? tiles : (rest + kThreads - 1) / kThreads;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (groups + blocks * kThreads < (1LL << 31)) {
+    gaussian_kernel<uint32_t><<<static_cast<int>(blocks), kThreads, 0, st>>>(
+        x, out, n, static_cast<uint32_t>(groups), static_cast<uint32_t>(tiles),
+        static_cast<unsigned long long>(base), seed_lo, seed_hi, sigma, vec);
+  } else {
+    gaussian_kernel<unsigned long long><<<static_cast<int>(blocks), kThreads, 0, st>>>(
+        x, out, n, static_cast<unsigned long long>(groups), static_cast<unsigned long long>(tiles),
+        static_cast<unsigned long long>(base), seed_lo, seed_hi, sigma, vec);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
