@@ -52,10 +52,14 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                chain batch (768, 32, 32, 3), m = 18 and 22, exact, beside
                ``grid_sample`` computing the same shear, in float32 and in
                bfloat16 (the ``--bf16-aug`` chain; also exact at (7, 33,
-               31, 3) on a base off 16 bytes, and bf16 K9a at (4, 16, 5000,
-               3), whose rows pass a block's stage and go by windows);
-               then one line for the two kernels redesigned last (K1, bf16
-               K9a): time, bound and share of the bound; K5p and K6p (the
+               31, 3) on a base off 16 bytes, bf16 K9a at (4, 16, 5000,
+               3), whose rows pass a block's stage and go by windows, and
+               bf16 K9b there and at (4, 5000, 16, 3), whose images pass
+               its stage and go to the direct kernel, each by the unit its
+               geometry names),
+               with ``Tensor.copy_`` of the same bytes; then one line for
+               the kernels redesigned last (K1, bf16 K9a, bf16 K9b): time,
+               bound and share of the bound; K5p and K6p (the
                lane-packed glass and elastic kernels) at (6144, 32, 32, 3)
                against their plain versions and against K5 and K6, exact,
                K6p at severities 1-5, at batch 6144 and at batch 12 on a
@@ -873,22 +877,32 @@ def check_k8(x, bound) -> dict:
 # bf16 K9a/K9b are also held exactly at an odd shape on a base off a 16-byte
 # boundary (2 bytes off: a 6-byte pixel straddles 4-byte words)
 K9_ODD_SHAPE = (7, 33, 31, 3)
-# bf16 K9a at rows longer than a block's stage (augment_cuda.ROWS_STAGE
-# values): the kernel's windows
+# rows longer than bf16 K9a's stage (augment_cuda.ROWS_STAGE values) go by
+# windows of a row; images larger than bf16 K9b's stage (wide or tall) go
+# to the direct kernel
 K9_WIDE_SHAPE = (4, 16, 5000, 3)
+K9_TALL_SHAPE = (4, 5000, 16, 3)
+# bf16 K9b's unit at each shape (augment_cuda.shear_cols_geometry)
+K9B_ROUTES = {(SHEAR_BATCH, 32, 32, 3): "images", K9_ODD_SHAPE: "images", K9_WIDE_SHAPE: "direct",
+              K9_TALL_SHAPE: "direct"}
 
 
 def check_k9(dev, gen, bound) -> dict:
     """K9a and K9b against their plain versions at an AugMix view's chain
     batch, exact, with shifts past the clip limits, in float32 and in
-    bfloat16 (the ``--bf16-aug`` chain; also at ``K9_ODD_SHAPE`` on a base
-    off 16 bytes); ``grid_sample`` (bilinear, border, corners aligned)
-    computes the same shear as the library yardstick, on the same dtype."""
+    bfloat16 (the ``--bf16-aug`` chain). bf16 K9a and K9b are also held at
+    ``K9_ODD_SHAPE`` on a base off 16 bytes and at ``K9_WIDE_SHAPE`` (windows
+    of a row; the direct kernel), bf16 K9b at ``K9_TALL_SHAPE`` (the direct
+    kernel), each by the unit its geometry names. ``grid_sample`` (bilinear,
+    border, corners aligned) computes the same shear as the library
+    yardstick, on the same dtype; ``Tensor.copy_`` of the same bytes is the
+    practical ceiling."""
     import torch
 
     from fav_tpu_torch.ops import augment as aug
     from fav_tpu_torch.ops import augment_cuda
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
     x32 = torch.rand((SHEAR_BATCH, 32, 32, 3), generator=gen, device=dev, dtype=torch.float32)
     for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
@@ -897,6 +911,8 @@ def check_k9(dev, gen, bound) -> dict:
         n = x.numel()
         mx, my = aug.shift_bounds(h, w)
         x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        copied = torch.empty_like(x)
+        copy_ms = time_ms(lambda: copied.copy_(x), reps=20)
         for base, kid, wrapper, plain_fn, m, rows in (
             ("shear_rows", "K9a", augment_cuda.shear_rows, aug.shift_rows, mx, True),
             ("shear_cols", "K9b", augment_cuda.shear_cols, aug.shift_cols, my, False),
@@ -917,21 +933,37 @@ def check_k9(dev, gen, bound) -> dict:
                 check(torch.equal(wrapper(xo, do, m), plain_fn(xo, do, m)),
                       f"{name}: differs from the plain version at {K9_ODD_SHAPE} off 16 bytes")
                 odd = f", and at {K9_ODD_SHAPE} on a base {xo.data_ptr() % 16} bytes off 16"
-                if rows:
-                    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-                    main = augment_cuda.shear_rows_bf16_geometry(b, h, w, c, sms)
-                    odd = (f" ({main.units} blocks of {main.rows_per_block} rows, {augment_cuda.ROWS_THREADS} "
-                           f"threads, {main.shared_bytes} B shared)" + odd)
-                    wb, wh, ww, wc = K9_WIDE_SHAPE
-                    geo = augment_cuda.shear_rows_bf16_geometry(wb, wh, ww, wc, sms)
-                    check(geo.window > 0, f"{name}: {K9_WIDE_SHAPE} should go by windows, got {geo}")
-                    mw = aug.shift_bounds(wh, ww)[0]
-                    xw = torch.rand(K9_WIDE_SHAPE, generator=gen, device=dev).to(dtype)
-                    dw = (torch.rand((wb, wh), generator=gen, device=dev) * 2 - 1) * (mw + 2)
-                    check(torch.equal(wrapper(xw, dw, mw), plain_fn(xw, dw, mw)),
-                          f"{name}: differs from the plain version at {K9_WIDE_SHAPE} (windows of {geo.window})")
-                    odd += (f", and at {K9_WIDE_SHAPE} (m={mw}) in windows of {geo.window} pixels, "
-                            f"{geo.windows_per_row} a row")
+            if rows and dtype == torch.bfloat16:
+                main = augment_cuda.shear_rows_bf16_geometry(b, h, w, c, sms)
+                odd = (f" ({main.units} blocks of {main.rows_per_block} rows, {augment_cuda.ROWS_THREADS} "
+                       f"threads, {main.shared_bytes} B shared)" + odd)
+                wb, wh, ww, wc = K9_WIDE_SHAPE
+                geo = augment_cuda.shear_rows_bf16_geometry(wb, wh, ww, wc, sms)
+                check(geo.window > 0, f"{name}: {K9_WIDE_SHAPE} should go by windows, got {geo}")
+                mw = aug.shift_bounds(wh, ww)[0]
+                xw = torch.rand(K9_WIDE_SHAPE, generator=gen, device=dev).to(dtype)
+                dw = (torch.rand((wb, wh), generator=gen, device=dev) * 2 - 1) * (mw + 2)
+                check(torch.equal(wrapper(xw, dw, mw), plain_fn(xw, dw, mw)),
+                      f"{name}: differs from the plain version at {K9_WIDE_SHAPE} (windows of {geo.window})")
+                odd += (f", and at {K9_WIDE_SHAPE} (m={mw}) in windows of {geo.window} pixels, "
+                        f"{geo.windows_per_row} a row")
+            if not rows and dtype == torch.bfloat16:
+                geos = {}
+                for shape, route in K9B_ROUTES.items():
+                    geo = augment_cuda.shear_cols_geometry(*shape, sms)
+                    check(geo.route == route, f"{name}: {shape} should go by {route}, got {geo}")
+                    geos[shape] = geo
+                for shape in (K9_WIDE_SHAPE, K9_TALL_SHAPE):
+                    sb, sh, sw, _ = shape
+                    ms_ = aug.shift_bounds(sh, sw)[1]
+                    xs = torch.rand(shape, generator=gen, device=dev).to(dtype)
+                    ds = (torch.rand((sb, sw), generator=gen, device=dev) * 2 - 1) * (ms_ + 2)
+                    check(torch.equal(wrapper(xs, ds, ms_), plain_fn(xs, ds, ms_)),
+                          f"{name}: differs from the plain version at {shape} ({geos[shape].route})")
+                main = geos[tuple(x.shape)]
+                odd = (f" ({main.units} blocks, {main.images_per_block} images and {augment_cuda.COLS_THREADS} "
+                       f"threads a block, {main.shared_bytes} B shared)" + odd +
+                       f", and at {K9_WIDE_SHAPE} and {K9_TALL_SHAPE} on the direct kernel")
             ms = time_ms(lambda: wrapper(x, delta, m), reps=20)
             plain_ms = time_ms(lambda: plain_fn(x, delta, m), reps=3, warmup=1)
             # the same shear as sample coordinates for grid_sample
@@ -957,12 +989,13 @@ def check_k9(dev, gen, bound) -> dict:
             ops = SHEAR_OPS_PER_ELEMENT * n
             bound_ms, by = bound(bytes_moved, ops)
             out[name] = {"kid": kid, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": by, "library_ms": library_ms, "library_note": lib_note}
+                         "bound_by": by, "library_ms": library_ms, "library_note": lib_note, "copy_ms": copy_ms}
             lib = (f"grid_sample {library_ms:.4f} ms (max|grid_sample-kernel| {lib_err:.3e}, another order of "
                    f"operations)" if library_ms is not None else lib_note)
             phase("kernels", f"{kid} {name} at {tuple(x.shape)}, m={m}: equal to the plain version{odd}; kernel "
                              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by}: "
-                             f"{bytes_moved / 1e6:.2f} MB, {ops / 1e9:.3f} Gop); {lib}")
+                             f"{bytes_moved / 1e6:.2f} MB, {ops / 1e9:.3f} Gop), Tensor.copy_ of the same bytes "
+                             f"{copy_ms:.4f} ms; {lib}")
     return out
 
 
@@ -3619,7 +3652,8 @@ def main(argv: list[str]) -> int:
     # the kernels redesigned last and their share of the bound, on one line
     # (the line an A/B of two commits reads)
     redesigned = [(f"K1 gaussian_noise at {tuple(x.shape)}", report["gaussian_noise"]),
-                  (f"bf16 K9a shear_rows_bf16 at {(SHEAR_BATCH, 32, 32, 3)}", k9_report["shear_rows_bf16"])]
+                  (f"bf16 K9a shear_rows_bf16 at {(SHEAR_BATCH, 32, 32, 3)}", k9_report["shear_rows_bf16"]),
+                  (f"bf16 K9b shear_cols_bf16 at {(SHEAR_BATCH, 32, 32, 3)}", k9_report["shear_cols_bf16"])]
     phase("kernels", "redesigned: " + "; ".join(
         f"{label} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
         f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound" for label, r in redesigned) + f" | {smi}")

@@ -23,6 +23,15 @@ bf16 K9a has a kernel of its own (``shear_rows_bf16_kernel`` in
 in shared memory and writes 16 bytes a thread. Its units and shared bytes
 come from ``shear_rows_bf16_geometry``, which raises for a shape the kernel
 cannot take.
+
+bf16 K9b is ``shear_cols_staged_kernel``: a block stages whole images in
+shared memory and walks runs of rows of one column a thread.
+``shear_cols_geometry`` picks the images a block, and sends an image that
+does not fit the stage to the direct one-pixel-a-thread ``shear_kernel``
+(on an H100, windows of adjacent columns staged over all rows were slower
+there); both are hand-written kernels, the launch counts under
+``shear_cols_bf16`` either way, and a shape neither takes raises. float32
+K9b stays on ``shear_kernel`` (it reached half of its bound there).
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ from fav_tpu_torch.ops import augment as plain
 from fav_tpu_torch.ops.corruptions_cuda import KERNELS, SHARED_MEMORY_LIMIT, multiprocessors
 
 __all__ = ["ROWS_THREADS", "ROWS_STAGE", "ROWS_MAX", "ROWS_BLOCKS_PER_SM", "ROWS_STEP", "RowsGeometry",
-           "shear_rows_bf16_geometry", "shear_rows", "shear_cols"]
+           "shear_rows_bf16_geometry", "COLS_THREADS", "COLS_STAGE", "COLS_MAX", "COLS_BLOCKS_PER_SM",
+           "ColsGeometry", "shear_cols_geometry", "shear_rows", "shear_cols"]
 
 # bf16 K9a's block (kRowsThreads, kRowsStage, kRowsMax in csrc/shear.cu):
 # threads, bf16 values a stage holds, rows a block takes at most.
@@ -107,6 +117,57 @@ def shear_rows_bf16_geometry(b: int, h: int, w: int, c: int, sms: int) -> RowsGe
     return RowsGeometry(per, window, windows if window else 0, units, in_stage, out_stage, shared)
 
 
+# bf16 K9b's block (kColsThreads, kColsStage, kColsMax in csrc/shear.cu):
+# threads, bf16 values a stage holds, columns (shifts) a block takes at most.
+COLS_THREADS = 256
+COLS_STAGE = 8192
+COLS_MAX = 1024
+# Whole images are spread over about this many blocks an SM, one wave.
+COLS_BLOCKS_PER_SM = 4
+_MAX_VALUES = 2**31 - 1
+
+
+class ColsGeometry(NamedTuple):
+    """bf16 K9b's launch: ``units`` blocks of ``COLS_THREADS`` threads, each
+    taking ``images_per_block`` whole images, with a stage of ``stage``
+    values and ``shared_bytes`` in all (the launcher derives the same).
+    ``images_per_block`` 0: the direct ``shear_kernel``, ``units`` blocks
+    of 256 pixels an image."""
+    images_per_block: int
+    units: int
+    stage: int
+    shared_bytes: int
+
+    @property
+    def route(self) -> str:
+        return "images" if self.images_per_block else "direct"
+
+
+def shear_cols_geometry(b: int, h: int, w: int, c: int, sms: int) -> ColsGeometry:
+    """bf16 K9b's units for (B, H, W, C) on a card of ``sms`` SMs. Images
+    whose H W C values fit a stage (and whose W shifts fit the table) go
+    whole, as many a block as spread the B images over one wave of
+    ``COLS_BLOCKS_PER_SM`` blocks an SM (at most what a stage and
+    ``COLS_MAX`` allow, so a larger batch takes more waves); other images
+    go to the direct kernel. Raises for an empty shape, an image of 2**31
+    values or more, or a batch of 2**31 images or more."""
+    if min(b, h, w, c) < 1:
+        raise ValueError(f"shear_cols: empty shape {(b, h, w, c)}")
+    hwc = h * w * c
+    if hwc > _MAX_VALUES:
+        raise ValueError(f"shear_cols: an image of {hwc} values passes the kernels' 32-bit index")
+    if b > _MAX_VALUES:
+        raise ValueError(f"shear_cols: a batch of {b} images passes the launchers' 32-bit batch")
+    if hwc + _PHASE > COLS_STAGE or w > COLS_MAX:
+        return ColsGeometry(0, -(-(h * w) // 256), 0, 0)
+    fit = min((COLS_STAGE - _PHASE) // hwc, COLS_MAX // w)
+    per = max(1, min(fit, -(-b // (sms * COLS_BLOCKS_PER_SM))))
+    # at most COLS_MAX shifts of 16 bytes and a 16 KB stage: within the
+    # shared memory a block may take, and at most B blocks
+    stage = _stage(per * hwc)
+    return ColsGeometry(per, -(-b // per), stage, 16 * per * w + 2 * stage)
+
+
 def _check(name: str, x: torch.Tensor, delta: torch.Tensor, axis: int) -> bool:
     """Validates the pair and says whether it takes the plain version."""
     if not isinstance(x, torch.Tensor) or x.dtype not in (torch.float32, torch.bfloat16) or x.ndim != 4:
@@ -133,6 +194,9 @@ def _launch(kernel: str, x: torch.Tensor, delta: torch.Tensor, m: int) -> torch.
         if kernel == "shear_rows":
             geo = shear_rows_bf16_geometry(b, h, w, c, multiprocessors(x.device))
             args += [geo.rows_per_block, geo.window]
+        else:
+            geo = shear_cols_geometry(b, h, w, c, multiprocessors(x.device))
+            args.append(geo.images_per_block)
         kernel += "_bf16"
     KERNELS[kernel].launch(x.device, *args)
     return out

@@ -286,7 +286,8 @@ KERNELS = {
     # the same two over bfloat16 images (augmix(..., bf16=True)), counted apart
     "shear_rows_bf16": CudaKernel("shear", "fav_shear_rows_bf16",
                                   [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _P]),
-    "shear_cols_bf16": CudaKernel("shear", "fav_shear_cols_bf16", [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _P]),
+    "shear_cols_bf16": CudaKernel("shear", "fav_shear_cols_bf16",
+                                  [_P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P]),
     # helper, no TPU counterpart: the Philox uniforms of ops/random.py on the card
     "philox_uniform": CudaKernel("corruptions", "fav_philox_uniform", [_P, _I64, _I64, _U32, _U32, _U32, _P]),
 }
