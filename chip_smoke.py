@@ -12,7 +12,9 @@ options, ensembles, KD, MC distillation, the autoencoder) and the pretrain
 CLI, serve the Mahalanobis feature distance and run the fit and replay
 tools, quantise to int8, run the parallel paths on a world of one rank
 (offset draws, the sharded grid, ``pretrain --shard``, the tensor-parallel
-ViT), and report.
+ViT), then the remaining shipped copies and the checkpoint tools (stack,
+refit, defense in depth, the weather probe, a member trainer, the
+conformal backfill) with the quickstart, and report.
 
     python3 chip_smoke.py             # what the checks run
     python3 chip_smoke.py --profile   # adds torch.profiler tables of one megastep, one analyzer batch,
@@ -257,6 +259,30 @@ Phases, each printing one ``[chip_smoke]`` line with its elapsed seconds:
                bf16 forward; the world left before the report. Its
                launches (the sharded grid's and the training run's) join
                each kernel's count under the ``parallel`` path.
+17. tools   -- the remaining copies and the checkpoint tools: the bf16
+               logits of ``student_compact``, ``student_occl_acc``,
+               ``classifier_occl``, ``classifier_freq``,
+               ``classifier_deepaug`` and ``distilled`` against the JAX
+               package's (``check_logits``); ``InferenceService`` on
+               ``student_compact`` for one batch (predictions equal to the
+               copy's forward); ``tools/stack_ensemble`` of ``classifier``,
+               ``classifier_freq`` and ``classifier_occl`` into a temporary
+               copy, then ``evaluate --ensemble 3`` on it over gaussian
+               noise, contrast and snow at 512 images; ``tools/
+               refit_temperature`` on ``classifier`` (7 AugMix views: K9a 14
+               and K9b 7 launches); ``tools/defense_in_depth`` on draw 0 at
+               512 images (K4 5, K7 11); ``tools/diagnose_weather`` at 512
+               images; ``fav_tpu_torch.quickstart --steps 50`` (K1 3);
+               ``tools/train_occl_members`` for one seed and 4 steps (K9a
+               16, K9b 8); ``tools/backfill_conformal`` on a copy of
+               ``classifier`` without its threshold. Counts reset before
+               each tool and read after it, each run's launches held to
+               ``TOOLS_LAUNCHES`` (none where only forwards run); each
+               output held to the JAX tools' full-size outputs
+               (``weights/tools.golden.json``) within the ``TOOLS_*``
+               bounds, every miss listed before the phase fails; its wall
+               time printed. Its launches join each kernel's count under
+               ``tools_<tool>`` paths.
 
 The line before the last is one JSON object listing every kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -3405,6 +3431,273 @@ def parallel_phase(dev, ds, smi: str) -> dict:
     return report
 
 
+TOOLS_COPIES = ("student_compact", "student_occl_acc", "classifier_occl", "classifier_freq", "classifier_deepaug",
+                "distilled")
+TOOLS_STACK = ("classifier", "classifier_freq", "classifier_occl")
+TOOLS_GRID_CELLS = ("gaussian_noise", "contrast", "snow")
+TOOLS_GRID_IMAGES = 512
+TOOLS_QUICKSTART_STEPS = 50
+TOOLS_MEMBER_STEPS = 4
+# launches each tool's run must show on the card
+TOOLS_LAUNCHES = {
+    # 7 AugMix views of the held-out split: K9a twice and K9b once a view
+    "refit": {"shear_rows": 14, "shear_cols": 7},
+    # the 11 rows: K4 in the five brightness and contrast cells, K7 once a row
+    "defense": {"photometric": 5, "frame_stats": 11},
+    # one AugMix view and gaussian noise at severities 1, 3 and 5
+    "weather": {"shear_rows": 2, "shear_cols": 1, "gaussian_noise": 3},
+    # gaussian noise (K1) and contrast (K4) at five severities, K7 once a cell
+    "stack_grid": {"gaussian_noise": 5, "photometric": 5, "frame_stats": 15},
+    # gaussian noise at severities 1, 3 and 5, and K7 once a cell
+    "quickstart": {"gaussian_noise": 3, "frame_stats": 9},
+    # one occlusion-AugMix member for 4 steps: 4 and 2 a step
+    "member": {"shear_rows": 4 * TOOLS_MEMBER_STEPS, "shear_cols": 2 * TOOLS_MEMBER_STEPS},
+}
+# the JAX tools' full-size outputs (weights/tools.golden.json) against the
+# port's on the card. Where a number comes from the same images, the bf16
+# forward class: accuracy within 0.5% of the rows, a temperature within 1%
+# (relative), ECE and AUROC within 0.005. Where it rests on another draw
+# (Philox against jax.random: the APS uniforms, AugMix views, corruption
+# fields), within 4 standard deviations of the difference of two draws:
+# a conformal threshold 0.025 (over 40 APS draws on student_compact's 2000
+# held-out rows its spread is 0.0044); a rate by its binomial law; a 512-
+# image view's mean confidence 0.05, luminance mean and spread 0.02 and
+# low-frequency fraction 0.03 (their per-image spreads over the 12
+# weather cells of the classifier, at most 0.054, 0.018, 0.008 and 0.029
+# for 4 standard deviations of the difference).
+TOOLS_ACC_TOL = 0.005
+TOOLS_T_RTOL = 0.01
+TOOLS_METRIC_TOL = 0.005
+TOOLS_QHAT_TOL = 0.025
+TOOLS_SHIFT_T_RTOL = 0.03  # the shift fit over another draw of 7 AugMix views
+TOOLS_VIEW_ECE_TOL = 0.01
+TOOLS_SIGMAS = 4.0
+TOOLS_LUM_TOL = 0.02
+TOOLS_LOWFREQ_TOL = 0.03
+TOOLS_CONF_TOL = 0.05
+
+
+def _near(label: str, got: float, want: float, tol: float, failures: list) -> float:
+    err = abs(float(got) - float(want))
+    if not err <= tol:
+        failures.append(f"{label}: port {got} against the JAX tool's {want} (tol {tol})")
+    return err
+
+
+def _rate_tol(rate: float, n: int) -> float:
+    """A rate over n rows from another draw: 4 standard errors of the
+    difference of two binomial draws, and 2 rows."""
+    return TOOLS_SIGMAS * (2 * max(rate * (1 - rate), 1.0 / n) / n) ** 0.5 + 2.0 / n
+
+
+def tools_phase(dev, ds) -> dict:
+    """The remaining copies and the checkpoint tools on the card; see the
+    module docstring, phase 17."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fav_tpu_torch import quickstart
+    from fav_tpu_torch.models import evaluate
+    from fav_tpu_torch.ops import corruptions_cuda as kern
+    from fav_tpu_torch.serving.app import _frame_for_model
+    from fav_tpu_torch.serving.inference import InferenceService
+    from fav_tpu_torch.tools import (backfill_conformal, defense_in_depth, diagnose_weather, refit_temperature,
+                                     stack_ensemble, train_occl_members)
+    from fav_tpu_torch.tools.scripted_serve import serve_golden_inputs
+    from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR, load_student, load_weights
+
+    t_phase = time.perf_counter()
+    golden = json.loads((WEIGHTS_DIR / "tools.golden.json").read_text())
+    report: dict = {"copies": {}}
+    counts: dict = {}
+    failures: list = []
+    walls: dict = {}
+
+    def run(name: str, fn):
+        kern.reset_launch_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # the tools print their reports
+            out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+        counts[f"tools_{name}"] = kern.launch_counts()
+        got = counts[f"tools_{name}"]
+        want = TOOLS_LAUNCHES.get(name, {})  # a tool not listed runs only forwards: no hand kernel
+        check(all(got[k] == want.get(k, got[k] if want else 0) for k in got),
+              f"tools: {name} launched {got}, expected {want or 'none'}")
+        return out
+
+    # (a) each copy's bf16 forward against the JAX package's eager logits
+    for name in TOOLS_COPIES:
+        g = json.loads((WEIGHTS_DIR / f"{name}.golden.json").read_text())
+        x = torch.from_numpy(np.random.default_rng(g["seed"]).random(tuple(g["shape"]), dtype=np.float32)).to(dev)
+        model, meta = load_student(name, device=dev)
+        with torch.no_grad():
+            got = model(x).float().cpu().numpy()
+        report["copies"][name] = check_logits(f"tools: {name}", got, np.asarray(g["logits"], np.float32))
+    phase("tools", "the six copies' bf16 logits against the JAX package's: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in report["copies"].items()) + f" (bound {GOLDEN_ATOL}, argmax equal on clear margins)")
+
+    # (b) the msp service on student_compact, one batch
+    frames = serve_golden_inputs(_frame_for_model)
+    svc = InferenceService(checkpoint_dir=str(WEIGHTS_DIR / "student_compact"), device=dev)
+    rows, probs = svc.score_batch(frames)
+    model, meta = load_student("student_compact", device=dev)
+    with torch.no_grad():
+        want = torch.softmax(model(torch.from_numpy(frames).to(dev)).float() / meta["temperature"], -1)
+    conf_err = float(np.abs(probs - want.cpu().numpy()).max())
+    check(svc.source.endswith("student_compact") and not svc.degraded and np.isfinite(rows).all()
+          and np.array_equal(rows[:, 0], want.argmax(-1).cpu().numpy()) and conf_err <= 1e-5,
+          f"tools: the student_compact service ({svc.source}) disagrees with its forward ({conf_err})")
+    phase("tools", f"InferenceService on student_compact: {len(frames)} frames, rows {rows.shape}, predictions "
+                   f"equal to the copy's forward, probabilities within {conf_err:.2e}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) stack three full-width recipes, then the grid's ensemble path on the stack
+        ens = str(Path(tmp) / "ensemble_recipes")
+        meta = run("stack", lambda: stack_ensemble.stack(list(TOOLS_STACK), ens, dev, ds))
+        want = golden["stack"]["metadata"]
+        check(meta["ensemble_size"] == 3 and meta["member_recipes"] == want["member_recipes"],
+              f"tools: stack metadata {meta}")
+        errs = {"accuracy": _near("stack accuracy", meta["accuracy"], want["accuracy"], TOOLS_ACC_TOL, failures),
+                "temperature": _near("stack temperature", meta["temperature"] / want["temperature"], 1.0,
+                                     TOOLS_T_RTOL, failures),
+                "ece": _near("stack ece", meta["ece"], want["ece"], TOOLS_METRIC_TOL, failures),
+                "failure_auroc": _near("stack auroc", meta["failure_auroc"], want["failure_auroc"],
+                                       TOOLS_METRIC_TOL, failures),
+                "conformal_qhat": _near("stack qhat", meta["conformal_qhat"], want["conformal_qhat"],
+                                        TOOLS_QHAT_TOL, failures)}
+        members, _ = load_weights("ensemble_recipes", device=dev, directory=tmp, members=3)
+        grid = run("stack_grid", lambda: evaluate.main(
+            ["--ensemble", "3", "--checkpoint", ens, "--num-images", str(TOOLS_GRID_IMAGES),
+             "--corruptions", ",".join(TOOLS_GRID_CELLS)], dataset=ds))
+        cells = [c for per in grid["grid"].values() for c in per.values()]
+        check(len(cells) == 5 * len(TOOLS_GRID_CELLS) and all(
+            np.isfinite(c["accuracy"]) and np.isfinite(c["auroc_mi"]) for c in cells),
+            "tools: the stacked ensemble's grid is incomplete or not finite")
+        report["stack"] = {"metadata": {k: meta[k] for k in want if k in meta}, "abs_err": errs,
+                           "grid_summary": grid["summary"]}
+        phase("tools", f"stack_ensemble {'+'.join(TOOLS_STACK)}: accuracy {meta['accuracy']} (JAX tool "
+                       f"{want['accuracy']}), T {meta['temperature']} ({want['temperature']}), ECE {meta['ece']} "
+                       f"({want['ece']}), failure AUROC {meta['failure_auroc']} ({want['failure_auroc']}), qhat "
+                       f"{meta['conformal_qhat']} ({want['conformal_qhat']}); bounds {TOOLS_ACC_TOL}, "
+                       f"{TOOLS_T_RTOL} relative, {TOOLS_METRIC_TOL}, {TOOLS_QHAT_TOL}; {walls['stack']:.2f} s; "
+                       f"evaluate --ensemble 3 over {len(cells)} cells x {TOOLS_GRID_IMAGES}: mean accuracy "
+                       f"{grid['summary']['mean_corrupted_accuracy']}, BALD AUROC "
+                       f"{grid['summary']['mean_failure_auroc_mi']}, {walls['stack_grid']:.2f} s")
+
+        # (d) the shift-aware refit of classifier over 7 AugMix views (K9a/K9b)
+        refit_out = str(Path(tmp) / "classifier_shiftT")
+        rep = run("refit", lambda: refit_temperature.refit("classifier", golden["refit"]["views"],
+                                                           seed=golden["refit"]["seed"], out=refit_out,
+                                                           device=dev, dataset=ds))
+        want = golden["refit"]["report"]
+        _near("refit clean T", rep["t_clean"] / golden["refit"]["t_clean"], 1.0, TOOLS_T_RTOL, failures)
+        _near("refit shift T", rep["t_shift"] / golden["refit"]["t_shift"], 1.0, TOOLS_SHIFT_T_RTOL, failures)
+        _near("refit views' accuracy", rep["val_acc_augmented_views"], want["val_acc_augmented_views"],
+              _rate_tol(want["val_acc_augmented_views"], golden["refit"]["views"] * ds.test_images.shape[0] // 2),
+              failures)
+        for split in ("ece_clean_val", "ece_augmented_val"):
+            for t in ("cleanfit_T", "shiftfit_T"):
+                _near(f"refit {split} {t}", rep[split][t], want[split][t], TOOLS_VIEW_ECE_TOL, failures)
+        written = json.loads(Path(refit_out + ".metadata.json").read_text())
+        check(written["temperature"] == rep["temperature_shiftfit"]
+              and Path(refit_out + ".npz").read_bytes() == (WEIGHTS_DIR / "classifier.npz").read_bytes(),
+              "tools: the refit copy lost its temperature or its weights")
+        report["refit"] = {k: rep[k] for k in want} | {"t_clean": rep["t_clean"], "t_shift": rep["t_shift"]}
+        phase("tools", f"refit_temperature classifier, {golden['refit']['views']} views: T clean {rep['t_clean']:.4f} "
+                       f"(JAX tool {golden['refit']['t_clean']:.4f}, bound {TOOLS_T_RTOL} relative), shift "
+                       f"{rep['t_shift']:.4f} ({golden['refit']['t_shift']:.4f}, {TOOLS_SHIFT_T_RTOL}), views' "
+                       f"accuracy {rep['val_acc_augmented_views']} ({want['val_acc_augmented_views']}, binomial "
+                       f"{TOOLS_SIGMAS} SE); ECE {rep['ece_augmented_val']} ({want['ece_augmented_val']}, "
+                       f"{TOOLS_VIEW_ECE_TOL}); K9a "
+                       f"{counts['tools_refit']['shear_rows']} K9b {counts['tools_refit']['shear_cols']} launches; "
+                       f"{walls['refit']:.2f} s")
+
+        # (e) defense in depth on draw 0 (K4 and K7)
+        rows = run("defense", lambda: defense_in_depth.analyze_cells(
+            golden["defense"]["draws"], golden["defense"]["num_images"], device=dev, datasets={0: ds}))
+        n = golden["defense"]["num_images"]
+        draw_free = ("clean", "contrast/", "brightness/", "defocus_blur/")
+        for got, want in zip(rows, golden["defense"]["rows"]):
+            check(got["cell"] == want["cell"], f"tools: defense rows {got['cell']} against {want['cell']}")
+            fixed = got["cell"].startswith(draw_free)
+            for k in ("flag_rate", "blank_rate", "corrupted_rate"):
+                _near(f"defense {got['cell']} {k}", got[k], want[k], 2.0 / n if fixed else _rate_tol(want[k], n),
+                      failures)
+            _near(f"defense {got['cell']} brightness", got["mean_brightness"], want["mean_brightness"],
+                  0.15 if fixed else 0.02 * 255, failures)
+            _near(f"defense {got['cell']} anomaly", got["mean_anomaly"], want["mean_anomaly"],
+                  0.002 if fixed else 0.03, failures)
+        report["defense"] = rows
+        phase("tools", f"defense_in_depth draw 0 at {n} images: {len(rows)} rows against the JAX tool's (rates "
+                       f"within 2 frames where nothing is drawn, else binomial {TOOLS_SIGMAS} SE and 2 frames; "
+                       f"brightness 0.15 / 2% of 255; anomaly 0.002 / 0.03), flag rates "
+                       + ", ".join(f"{r['cell']} {r['flag_rate']}" for r in rows)
+                       + f"; K4 {counts['tools_defense']['photometric']} K7 {counts['tools_defense']['frame_stats']} "
+                         f"launches; {walls['defense']:.2f} s")
+
+        # (f) the weather probe at 512 images
+        res = run("weather", lambda: diagnose_weather.diagnose("classifier", golden["weather"]["num_images"], dev,
+                                                               ds))
+        n = golden["weather"]["num_images"]
+        for name, want in golden["weather"]["views"].items():
+            got = res["views"][name]
+            clean = name == "clean"
+            _near(f"weather {name} acc", got["acc"], want["acc"], 2.0 / n if clean else _rate_tol(want["acc"], n),
+                  failures)
+            _near(f"weather {name} conf", got["conf"], want["conf"], TOOLS_METRIC_TOL if clean else TOOLS_CONF_TOL,
+                  failures)
+            for k, tol in (("lum_mean", TOOLS_LUM_TOL), ("lum_std", TOOLS_LUM_TOL),
+                           ("lowfreq_frac", TOOLS_LOWFREQ_TOL)):
+                _near(f"weather {name} {k}", got[k], want[k], 1e-5 if clean else tol, failures)
+        report["weather"] = res["views"]
+        phase("tools", f"diagnose_weather classifier at {n} images: 14 views against the JAX tool's (clean: "
+                       f"accuracy 2 images, confidence {TOOLS_METRIC_TOL}, statistics 1e-5; drawn: accuracy "
+                       f"binomial {TOOLS_SIGMAS} SE, confidence {TOOLS_CONF_TOL}, luminance {TOOLS_LUM_TOL}, "
+                       f"low-frequency fraction {TOOLS_LOWFREQ_TOL}), accuracy "
+                       + ", ".join(f"{k} {v['acc']:.3f}" for k, v in res["views"].items())
+                       + f"; {walls['weather']:.2f} s")
+
+        # (g) the quickstart, (h) one member seed, (i) the conformal backfill
+        qs = run("quickstart", lambda: quickstart.main(["--steps", str(TOOLS_QUICKSTART_STEPS), "--device", str(dev)],
+                                                       dataset=ds))
+        check(all(np.isfinite(c["accuracy"]) for cells in qs["grid"].values() for c in cells.values())
+              and np.isfinite(qs["reliability"]).all() and len(qs["policy"]) == 315,
+              "tools: the quickstart's sweep or replay is incomplete")
+        phase("tools", f"quickstart --steps {TOOLS_QUICKSTART_STEPS}: accuracy {qs['accuracy']:.3f}, T "
+                       f"{qs['temperature']:.3f}, ECE {qs['ece']:.4f}, severity-5 noise anomaly "
+                       f"{qs['sev5_anomaly']:.3f}, final reliability {qs['reliability'][-1]:.3f}; K1 "
+                       f"{counts['tools_quickstart']['gaussian_noise']} launches; {walls['quickstart']:.2f} s")
+        run("member", lambda: train_occl_members.main(
+            ["--steps", str(TOOLS_MEMBER_STEPS), "--megastep", "2", "--seeds", "1", "--outdir", tmp,
+             "--device", str(dev)], dataset=ds))
+        member, mmeta = load_weights("occl_m1", device=dev, directory=tmp)
+        check(mmeta["occlude"] and mmeta["train_steps"] == TOOLS_MEMBER_STEPS and np.isfinite(mmeta["temperature"]),
+              f"tools: the member's metadata {mmeta}")
+        for ext in (".npz", ".metadata.json"):
+            shutil.copy(WEIGHTS_DIR / f"classifier{ext}", Path(tmp) / f"classifier{ext}")
+        meta_path = Path(tmp) / "classifier.metadata.json"
+        shipped = json.loads(meta_path.read_text())
+        meta_path.write_text(json.dumps({k: v for k, v in shipped.items() if not k.startswith("conformal_")}))
+        entries = run("backfill", lambda: backfill_conformal.backfill(str(Path(tmp) / "classifier"), dev, ds))
+        _near("backfill qhat", entries["conformal_qhat"], shipped["conformal_qhat"], TOOLS_QHAT_TOL, failures)
+        phase("tools", f"train_occl_members seed 1, {TOOLS_MEMBER_STEPS} steps: accuracy {mmeta['accuracy']}, "
+                       f"{walls['member']:.2f} s; backfill_conformal on classifier: qhat {entries['conformal_qhat']} "
+                       f"(shipped {shipped['conformal_qhat']}, bound {TOOLS_QHAT_TOL}), {walls['backfill']:.2f} s")
+    check(not failures, "tools: " + "; ".join(failures))
+    report["walls"] = walls
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["counts"] = counts
+    phase("tools", f"phase wall {report['wall_s']:.2f} s")
+    return report
+
+
 def main(argv: list[str]) -> int:
     import torch
 
@@ -3769,6 +4062,9 @@ def main(argv: list[str]) -> int:
     # ── 16. the parallel paths on a world of one ──────────────────────────
     par = parallel_phase(dev, ds, smi)
 
+    # ── 17. the remaining copies and the checkpoint tools ─────────────────
+    tools = tools_phase(dev, ds)
+
     # ── report ─────────────────────────────────────────────────────────────
     pallas = "fav_tpu/ops/corruptions_pallas.py"
     csrc = "fav_tpu_torch/ops/csrc"
@@ -3862,10 +4158,17 @@ def main(argv: list[str]) -> int:
         e["launches_by_path"]["parallel"] = par["counts"][key]
         if key in par["offsets"]:
             e["ms_offset"] = par["offsets"][key]["ms_offset"]
+    for path, c in tools["counts"].items():
+        paths[path] = c
+        for e in entries:
+            e["launches"] += c[kernel_keys[e["name"]]]
+            e["launches_by_path"][path] = c[kernel_keys[e["name"]]]
+    tools_helper = sum(c["philox_uniform"] for c in tools["counts"].values())
     r = report["philox_uniform"]
     helpers = [{"name": "philox_uniform", "route": "cuda", "source": f"{csrc}/corruptions.cu",
                 "replaces": None,
-                "launches": counts["philox_uniform"] + grid_counts["philox_uniform"] + par["counts"]["philox_uniform"],
+                "launches": counts["philox_uniform"] + grid_counts["philox_uniform"] + par["counts"]["philox_uniform"]
+                + tools_helper,
                 **{k: r[k] for k in keys}, "ms_offset": par["offsets"]["philox_uniform"]["ms_offset"],
                 "library_ms": r["library_ms"], "library_note": "torch.rand(n), another stream",
                 "launches_by_path": {path: c["philox_uniform"] for path, c in paths.items()}}]
@@ -3886,6 +4189,7 @@ def main(argv: list[str]) -> int:
                                              for m in FAMILY_SERVE_MODES}},
                       "maha": {k: v for k, v in maha.items() if not k.endswith("counts")}, "quant": quant,
                       "parallel": {k: v for k, v in par.items() if k != "counts"},
+                      "tools": {k: v for k, v in tools.items() if k != "counts"},
                       "packed_ab": {"median_ms": ab["median_ms"],
                                     "megastep": {arm: {k: ab["ab_packed"][arm][k]
                                                        for k in ("ms_per_megastep", "img_per_sec")}

@@ -60,15 +60,11 @@ MC_FOLD_ROWS = 8192
 
 
 def _resolve(ckpt: str) -> tuple[Path, str] | None:
-    """(directory, stem) of a checkpoint's weights, or None if there are none:
-    a path whose ``.npz`` exists, else a name under ``weights/``."""
-    from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR
+    """(directory, stem) of a checkpoint's weights, or None if there are none
+    (``utils/checkpoint.py:resolve_copy``)."""
+    from fav_tpu_torch.utils.checkpoint import resolve_copy
 
-    path = Path(ckpt[:-4] if ckpt.endswith(".npz") else ckpt)
-    for directory, stem in ((path.parent, path.name), (WEIGHTS_DIR, ckpt)):
-        if (directory / f"{stem}.npz").is_file():
-            return directory, stem
-    return None
+    return resolve_copy(ckpt)
 
 
 def _metadata(ckpt: str) -> dict | None:

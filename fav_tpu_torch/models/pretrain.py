@@ -58,7 +58,7 @@ from fav_tpu_torch.parallel.dist import current_world, init_world
 from fav_tpu_torch.parallel.mesh import auto_mesh_shape, build_mesh, ensemble_sharding
 from fav_tpu_torch.utils.checkpoint import WEIGHTS_DIR, flax_to_torch, load_weights, save_flax_npz, torch_to_flax
 
-__all__ = ["DEFAULT_OUT_DIR", "main"]
+__all__ = ["DEFAULT_OUT_DIR", "heldout_split", "main", "mean_logits", "quality_metadata"]
 
 DEFAULT_OUT_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_checkpoints"
 
@@ -153,9 +153,10 @@ def _widths(args) -> tuple[int, ...] | None:
     return tuple(int(w) for w in args.widths.split(",")) if args.widths else None
 
 
-def _split(ds, dev):
-    """The held-out split: the first half of the test set fits the
-    temperature, the second is reported."""
+def heldout_split(ds, dev):
+    """The held-out split ``(val_x, val_y, test_x, test_y)`` on ``dev``: the
+    first half of the test set fits the temperature, the second is
+    reported."""
     n_val = ds.test_images.shape[0] // 2
 
     def t(a):
@@ -165,8 +166,12 @@ def _split(ds, dev):
             t(ds.test_labels[n_val:]))
 
 
-def _quality(val_logits, val_y, logits, test_y, uncalibrated: bool) -> dict:
-    """The calibration keys of ``fav_tpu``'s metadata, in its order."""
+def quality_metadata(val_logits, val_y, logits, test_y, uncalibrated: bool = False, u=None) -> dict:
+    """The calibration keys of ``fav_tpu``'s metadata, in its order, from
+    the held-out logits: the temperature fitted on ``val_logits``, the
+    conformal threshold on their tempered probabilities (``u``: the APS
+    uniforms, ``calibration_metadata``'s default when None), accuracy, ECE
+    (and ``ece_uncalibrated``) and failure AUROC on ``logits``."""
     temperature = float(fit_temperature(val_logits, val_y))
     probs = torch.softmax(logits / temperature, dim=-1)
     conf, preds = probs.max(dim=-1)
@@ -177,7 +182,7 @@ def _quality(val_logits, val_y, logits, test_y, uncalibrated: bool) -> dict:
         "temperature": round(temperature, 4),
         # deploy-time conformal threshold, calibrated on the same held-out
         # clean split as the temperature (alpha = 0.1)
-        **calibration_metadata(torch.softmax(val_logits / temperature, dim=-1), val_y),
+        **calibration_metadata(torch.softmax(val_logits / temperature, dim=-1), val_y, u=u),
         "ece": round(float(expected_calibration_error(conf, correct)), 4),
     }
     if uncalibrated:
@@ -188,7 +193,7 @@ def _quality(val_logits, val_y, logits, test_y, uncalibrated: bool) -> dict:
 
 
 @torch.no_grad()
-def _logits(models, x: torch.Tensor) -> torch.Tensor:
+def mean_logits(models, x: torch.Tensor) -> torch.Tensor:
     """Eval-mode logits; the members' mean for an ensemble (logit-averaged)."""
     if isinstance(models, list):
         return torch.stack([m(x) for m in models]).mean(dim=0)
@@ -320,9 +325,9 @@ def _distill(args, ds, dev) -> dict:
     student = distill_mc_dropout(teacher, ds.train_images, mc_samples=args.distill_mc, num_steps=args.steps,
                                  batch_size=args.batch, learning_rate=args.lr, seed=args.seed,
                                  log_every=args.log_every, device=dev).eval()
-    val_x, val_y, test_x, test_y = _split(ds, dev)
+    val_x, val_y, test_x, test_y = heldout_split(ds, dev)
     metrics = {
-        **_quality(_logits(student, val_x), val_y, _logits(student, test_x), test_y, uncalibrated=False),
+        **quality_metadata(mean_logits(student, val_x), val_y, mean_logits(student, test_x), test_y),
         "data_source": ds.source,
         "train_steps": args.steps,
         "distilled_from": teacher_dir,
@@ -351,9 +356,9 @@ def _distill_ensemble(args, ds, dev) -> dict:
         log_every=args.log_every, augmix=args.augmix, freq=args.freqband, occlude=args.occlude,
         bf16_aug=args.bf16_aug, megastep=args.megastep, device=dev,
     ).eval()
-    val_x, val_y, test_x, test_y = _split(ds, dev)
+    val_x, val_y, test_x, test_y = heldout_split(ds, dev)
     metrics = {
-        **_quality(_logits(student, val_x), val_y, _logits(student, test_x), test_y, uncalibrated=False),
+        **quality_metadata(mean_logits(student, val_x), val_y, mean_logits(student, test_x), test_y),
         "data_source": ds.source,
         "train_steps": args.steps,
         "distilled_from": teacher_dir,
@@ -414,9 +419,9 @@ def main(argv: list[str] | None = None, dataset=None) -> dict:
         )
         trained = trained.eval()
         tree = torch_to_flax(trained.state_dict())
-    val_x, val_y, test_x, test_y = _split(ds, dev)
+    val_x, val_y, test_x, test_y = heldout_split(ds, dev)
     metrics = {
-        **_quality(_logits(trained, val_x), val_y, _logits(trained, test_x), test_y, uncalibrated=True),
+        **quality_metadata(mean_logits(trained, val_x), val_y, mean_logits(trained, test_x), test_y, uncalibrated=True),
         "data_source": ds.source,
         "train_steps": args.steps,
         "ensemble_size": args.ensemble or None,

@@ -29,7 +29,7 @@ from fav_tpu_torch.models.cnn import ConvAutoencoder, create_model
 
 __all__ = [
     "WEIGHTS_DIR", "flax_to_torch", "torch_to_flax", "adamw_state_from_optax", "random_flax_params",
-    "load_flax_npz", "save_flax_npz", "load_student", "load_weights", "unstack_members",
+    "load_flax_npz", "save_flax_npz", "load_student", "load_weights", "resolve_copy", "unstack_members",
 ]
 
 WEIGHTS_DIR = Path(__file__).resolve().parents[1] / "weights"
@@ -170,6 +170,18 @@ def save_flax_npz(path: str | Path, params: dict[str, np.ndarray]) -> None:
     """One array per flax path, the layout :func:`load_flax_npz` reads."""
     with open(path, "wb") as f:
         np.savez(f, **params)
+
+
+def resolve_copy(ckpt: str | Path) -> tuple[Path, str] | None:
+    """(directory, stem) of a weight copy, or None if there is none: a path
+    whose ``.npz`` exists (``.npz`` may be given), else a name under
+    ``weights/``."""
+    ckpt = str(ckpt)
+    path = Path(ckpt[:-4] if ckpt.endswith(".npz") else ckpt)
+    for directory, stem in ((path.parent, path.name), (WEIGHTS_DIR, ckpt)):
+        if (directory / f"{stem}.npz").is_file():
+            return directory, stem
+    return None
 
 
 def load_student(

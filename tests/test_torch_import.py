@@ -172,6 +172,41 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         resolve_device("meta")
 
 
+# the checkpoint tools and the quickstart, each with arguments that would run
+# ("{tmp}" a temporary directory holding a copy of student_nano without its
+# conformal threshold, so the backfill has work)
+CKPT_ENTRY_POINTS = {
+    "tools.stack_ensemble": ["classifier", "classifier_freq", "--out", "{tmp}/stacked"],
+    "tools.refit_temperature": ["--checkpoint", "classifier", "--views", "1"],
+    "tools.defense_in_depth": ["--draws", "0", "--num-images", "4"],
+    "tools.diagnose_weather": ["--num-images", "4"],
+    "tools.train_occl_members": ["--steps", "1", "--seeds", "1", "--outdir", "{tmp}"],
+    "tools.train_student_members": ["--steps", "1", "--seeds", "1", "--outdir", "{tmp}"],
+    "tools.backfill_conformal": ["{tmp}/nano"],
+    "quickstart": ["--steps", "1"],
+}
+
+
+@pytest.mark.parametrize("module", sorted(CKPT_ENTRY_POINTS))
+def test_checkpoint_tools_refuse_the_cpu_unless_asked(module, tmp_path):
+    """Each new entry point, given work and no ``--device cpu``, raises
+    before it reads a dataset or writes anything."""
+    import importlib
+    import json
+
+    _no_card()
+    for ext in (".npz", ".metadata.json"):
+        shutil.copy(PACKAGE / "weights" / f"student_nano{ext}", tmp_path / f"nano{ext}")
+    meta = json.loads((tmp_path / "nano.metadata.json").read_text())
+    del meta["conformal_qhat"]
+    (tmp_path / "nano.metadata.json").write_text(json.dumps(meta))
+    before = sorted(p.name for p in tmp_path.iterdir())
+    main = importlib.import_module(f"fav_tpu_torch.{module}").main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([a.replace("{tmp}", str(tmp_path)) for a in CKPT_ENTRY_POINTS[module]])
+    assert sorted(p.name for p in tmp_path.iterdir()) == before
+
+
 def test_parallel_modules_import_alone_and_init_world_needs_a_card():
     """``parallel/dist.py``, ``mesh.py`` and ``dryrun.py`` import in a fresh
     interpreter without JAX (the walk above imports them with the rest);

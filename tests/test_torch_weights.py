@@ -4,7 +4,10 @@
 ``classifier.npz`` hold the flax parameters of
 ``fav_tpu/checkpoints/student_nano``, ``student_std`` (the ``gated``
 preset's predictor) and ``classifier`` (the evaluation grid's default
-model, widths 64/128/256) as numpy arrays, and ``autoencoder.npz``,
+model, widths 64/128/256) as numpy arrays; ``student_compact`` and
+``student_occl_acc`` (the compact students, 32/64/128), ``classifier_occl``,
+``classifier_freq``, ``classifier_deepaug`` and ``distilled`` (64/128/256)
+those of the other shipped classifiers; ``autoencoder.npz``,
 ``vit.npz`` and ``ensemble.npz`` those of the autoencoder (widths
 32/64/128, latent 128), the ViT (dim 128, depth 4, heads 4) and the
 five-member vgg ensemble (every leaf stacked on a leading member axis),
@@ -18,7 +21,7 @@ fixed frames and the states the JAX app reaches on the scripted streams;
 the last tests here pin it.
 
 Run as a script with ``--write`` to regenerate the weights, metadata and
-goldens of all six copies (``--write NAME ...`` for some of them):
+goldens of all twelve copies (``--write NAME ...`` for some of them):
 
     JAX_PLATFORMS=cpu python tests/test_torch_weights.py --write
 
@@ -56,7 +59,11 @@ GOLDEN_SEED = 0
 GOLDEN_BATCH = 8
 STUDENTS = ("student_nano", "student_std")
 FAMILIES = ("autoencoder", "vit", "ensemble")
-COPIES = STUDENTS + ("classifier",)
+# the other shipped single classifiers: the compact students (vgg 32/64/128)
+# and the full-width recipes (64/128/256)
+SHIPPED = ("student_compact", "student_occl_acc", "classifier_occl", "classifier_freq", "classifier_deepaug",
+           "distilled")
+COPIES = STUDENTS + ("classifier",) + SHIPPED
 
 
 def _flat(tree, prefix=""):
@@ -184,7 +191,7 @@ def write_family(name: str) -> None:
 
 def write(names=()) -> None:
     for name in names or COPIES + FAMILIES:
-        (write_family if name in FAMILIES else write_student)(name)
+        write_family(name)
 
 
 if __name__ == "__main__":
@@ -315,6 +322,67 @@ def test_classifier_golden_logits_equal_jax_forward(restored_classifier):
     assert golden["seed"] == GOLDEN_SEED and golden["shape"] == [GOLDEN_BATCH, 32, 32, 3]
     np.testing.assert_allclose(np.asarray(golden["logits"], np.float32),
                                jax_logits(params, meta, golden_images()), atol=1e-5, rtol=0)
+
+
+# ── the other shipped classifiers ────────────────────────────────────────
+
+SHIPPED_META = {
+    # what evaluate, serving and the checkpoint tools read from each copy
+    "student_compact": {"temperature": 1.1333, "conformal_qhat": 0.90689, "widths": [32, 64, 128],
+                        "dense_width": 128, "distilled_from": "fav_tpu/checkpoints/ensemble"},
+    "student_occl_acc": {"temperature": 0.931, "conformal_qhat": 0.90493, "widths": [32, 64, 128],
+                         "dense_width": 128, "occlude": True},
+    "classifier_occl": {"temperature": 0.8557, "conformal_qhat": 0.90088, "widths": [64, 128, 256],
+                        "dense_width": 256, "augmix": True, "occlude": True},
+    "classifier_freq": {"temperature": 0.894, "conformal_qhat": 0.90205, "widths": [64, 128, 256],
+                        "dense_width": 256, "augmix": True, "freqband": True},
+    "classifier_deepaug": {"temperature": 0.7531, "conformal_qhat": 0.91084, "widths": [64, 128, 256],
+                           "dense_width": 256, "augmix": True, "deepaugment": True},
+    "distilled": {"temperature": 0.9096, "conformal_qhat": 0.90428, "widths": [64, 128, 256],
+                  "dense_width": 256, "distill_mc_samples": 20},
+}
+SHIPPED_VALUES = {"student_compact": 499_466, "student_occl_acc": 499_466}
+
+
+@pytest.fixture(scope="module")
+def restored_shipped():
+    return {name: restore_family(name) for name in SHIPPED}
+
+
+@pytest.mark.parametrize("name", SHIPPED)
+def test_shipped_npz_equals_orbax_checkpoint(restored_shipped, name):
+    """Array by array, bit for bit: the compact students hold 499,466
+    float32 values, the full-width classifiers 1,990,154."""
+    params, _ = restored_shipped[name]
+    with np.load(os.path.join(WEIGHTS, name + ".npz")) as data:
+        assert sorted(data.files) == sorted(params)
+        for k, v in params.items():
+            assert data[k].dtype == np.float32
+            np.testing.assert_array_equal(data[k], v, err_msg=k)
+    assert sum(v.size for v in params.values()) == SHIPPED_VALUES.get(name, 1_990_154)
+
+
+@pytest.mark.parametrize("name", SHIPPED)
+def test_shipped_metadata_carries_what_the_tools_read(restored_shipped, name):
+    _, meta = restored_shipped[name]
+    with open(os.path.join(WEIGHTS, name + ".metadata.json")) as f:
+        copy = json.load(f)
+    assert copy == portable_metadata(meta)
+    assert {k: copy[k] for k in SHIPPED_META[name]} == SHIPPED_META[name]
+    assert copy["arch"] == "vgg" and not copy.get("ensemble_size")
+
+
+@pytest.mark.parametrize("name", SHIPPED)
+def test_shipped_golden_logits_equal_jax_forward(restored_shipped, name):
+    """The JAX package's eager bf16 logits (float32 rounding between XLA
+    builds: 1e-5)."""
+    params, meta = restored_shipped[name]
+    with open(os.path.join(WEIGHTS, name + ".golden.json")) as f:
+        golden = json.load(f)
+    assert golden["seed"] == GOLDEN_SEED and golden["shape"] == [GOLDEN_BATCH, 32, 32, 3]
+    np.testing.assert_allclose(np.asarray(golden["logits"], np.float32),
+                               np.asarray(family_golden(params, meta, golden_images())["logits"], np.float32),
+                               atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("name", COPIES)
